@@ -1,0 +1,18 @@
+"""Arabesque's filter-process mining engine in PyTorch for one NVIDIA H100
+(port of ``repro.core``; the JAX package stays the reference)."""
+from repro_torch.core.api import MiningApp
+from repro_torch.core.engine import EngineConfig, MiningResult, run
+from repro_torch.core.graph import DeviceGraph, Graph, to_device
+from repro_torch.core.runtime import RunConfig, SuperstepRuntime
+
+__all__ = [
+    "MiningApp",
+    "EngineConfig",
+    "MiningResult",
+    "RunConfig",
+    "SuperstepRuntime",
+    "run",
+    "DeviceGraph",
+    "Graph",
+    "to_device",
+]

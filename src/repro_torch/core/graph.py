@@ -1,0 +1,282 @@
+"""Labeled immutable input graphs for mining (port of ``repro.core.graph``).
+
+Two views:
+  * :class:`Graph` — host-side (numpy) construction / generators, the same
+    code as the JAX package's, so one seed gives one graph in both.
+  * :class:`DeviceGraph` — the tensors the exploration kernels read:
+    padded neighbour table, packed adjacency bitset (int32 words with the
+    uint32 bits of the host table), edge endpoint table, per-vertex
+    incident-edge table. :func:`to_device` puts them on the card unless the
+    caller asks for the CPU.
+
+The partitioned layout (``PartitionedGraph``) is not ported yet; see
+ROADMAP.md.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core import bitset
+from repro_torch.kernels.dispatch import resolve_device
+
+
+@dataclasses.dataclass(frozen=True)
+class Graph:
+    """Undirected labeled graph (host side).
+
+    Attributes:
+      n: number of vertices (ids ``0..n-1``).
+      labels: ``(n,)`` int32 vertex labels (``0`` allowed; arbitrary ints).
+      edges: ``(m, 2)`` int32, each row ``(u, v)`` with ``u < v``, unique,
+        no self loops. Edge ids are row indices.
+      edge_labels: optional ``(m,)`` int32.
+    """
+
+    n: int
+    labels: np.ndarray
+    edges: np.ndarray
+    edge_labels: Optional[np.ndarray] = None
+
+    def __post_init__(self):
+        edges = np.asarray(self.edges, dtype=np.int32).reshape(-1, 2)
+        edges = np.sort(edges, axis=1)
+        if len(edges):
+            if (edges[:, 0] == edges[:, 1]).any():
+                raise ValueError("self loops are not supported")
+            edges = np.unique(edges, axis=0)
+        object.__setattr__(self, "edges", edges)
+        object.__setattr__(
+            self, "labels", np.asarray(self.labels, dtype=np.int32).reshape(self.n)
+        )
+        if self.edge_labels is not None:
+            object.__setattr__(
+                self,
+                "edge_labels",
+                np.asarray(self.edge_labels, dtype=np.int32).reshape(len(edges)),
+            )
+
+    # -- derived host-side structures ------------------------------------
+    @property
+    def m(self) -> int:
+        return len(self.edges)
+
+    def degrees(self) -> np.ndarray:
+        deg = np.zeros(self.n, dtype=np.int32)
+        np.add.at(deg, self.edges[:, 0], 1)
+        np.add.at(deg, self.edges[:, 1], 1)
+        return deg
+
+    def csr(self):
+        """Sorted CSR adjacency: (indptr (n+1,), indices (2m,), eids (2m,))."""
+        u = np.concatenate([self.edges[:, 0], self.edges[:, 1]])
+        v = np.concatenate([self.edges[:, 1], self.edges[:, 0]])
+        e = np.concatenate([np.arange(self.m), np.arange(self.m)]).astype(np.int32)
+        order = np.lexsort((v, u))
+        u, v, e = u[order], v[order], e[order]
+        indptr = np.zeros(self.n + 1, dtype=np.int64)
+        np.add.at(indptr, u + 1, 1)
+        indptr = np.cumsum(indptr)
+        return indptr, v.astype(np.int32), e
+
+    def neighbor_table(self):
+        """Padded (n, D) neighbour table + matching edge-id table, pad = -1.
+
+        Vectorised scatter: CSR entry j of vertex v lands at column
+        ``j - indptr[v]`` — no per-vertex Python loop, which dominated
+        device-graph build time at mico/patents scales."""
+        indptr, indices, eids = self.csr()
+        deg = (indptr[1:] - indptr[:-1]).astype(np.int32)
+        d = max(1, int(deg.max()) if self.n else 1)
+        nbr = np.full((self.n, d), -1, dtype=np.int32)
+        ned = np.full((self.n, d), -1, dtype=np.int32)
+        if len(indices):
+            rows = np.repeat(np.arange(self.n), deg)
+            cols = np.arange(len(indices)) - np.repeat(indptr[:-1], deg)
+            nbr[rows, cols] = indices
+            ned[rows, cols] = eids
+        return nbr, ned, deg
+
+    def adjacency_tile(self, lo: int, hi: int) -> np.ndarray:
+        """Packed adjacency rows for the vertex range ``[lo, hi)``:
+        ``(hi - lo, ceil(n/32))`` uint32, built by an O(m) bit scatter —
+        never the dense ``(n, n)`` bool intermediate. This is the unit the
+        partitioned layout (:func:`to_partitioned`) stacks per shard."""
+        lo, hi = int(lo), int(hi)
+        w = bitset.n_words(self.n)
+        words = np.zeros((max(hi - lo, 0), w), dtype=np.uint32)
+        if self.m and hi > lo:
+            u = np.concatenate([self.edges[:, 0], self.edges[:, 1]])
+            v = np.concatenate([self.edges[:, 1], self.edges[:, 0]])
+            sel = (u >= lo) & (u < hi)
+            u, v = u[sel] - lo, v[sel]
+            np.bitwise_or.at(
+                words,
+                (u, v // bitset.WORD_BITS),
+                np.uint32(1) << (v % bitset.WORD_BITS).astype(np.uint32),
+            )
+        return words
+
+    def adjacency_bits(self) -> np.ndarray:
+        """Whole packed adjacency bitmap — one full-range tile. O(m) bit
+        scatter (the old implementation materialised a dense O(n^2) bool
+        matrix eagerly, capping host-side setup long before device memory
+        did)."""
+        return self.adjacency_tile(0, self.n)
+
+
+class DeviceGraph(NamedTuple):
+    """Device-side graph used by the exploration kernels."""
+
+    labels: torch.Tensor       # (n,) int32
+    nbr: torch.Tensor          # (n, D) int32 neighbour ids, pad -1
+    nbr_eid: torch.Tensor      # (n, D) int32 incident edge ids, pad -1
+    deg: torch.Tensor          # (n,) int32
+    adj_bits: torch.Tensor     # (n, W) int32 packed adjacency (uint32 bits)
+    edge_uv: torch.Tensor      # (m, 2) int32 endpoints, u < v
+    edge_labels: torch.Tensor  # (m,) int32 (zeros when unlabeled)
+
+    @property
+    def n(self) -> int:
+        return self.labels.shape[0]
+
+    @property
+    def m(self) -> int:
+        return self.edge_uv.shape[0]
+
+    @property
+    def max_degree(self) -> int:
+        return self.nbr.shape[1]
+
+    @property
+    def device(self) -> torch.device:
+        return self.labels.device
+
+    def is_edge(self, u, v):
+        """Vectorised O(1) edge query; False for negative ids."""
+        return bitset.test_bit(self.adj_bits, u, v)
+
+
+#: the fields of a DeviceGraph, in order (also the JAX package's order).
+FIELDS = DeviceGraph._fields
+
+
+def device_graph_from_numpy(arrays, device=None) -> DeviceGraph:
+    """Build a :class:`DeviceGraph` from numpy arrays of its fields — a
+    mapping, or any object with an ``_asdict`` (the JAX package's
+    ``DeviceGraph`` after ``np.asarray`` of each field). ``adj_bits`` may
+    arrive as uint32; it is stored as int32 with the same bits."""
+    if hasattr(arrays, "_asdict"):
+        arrays = arrays._asdict()
+    device = resolve_device(device)
+    out = {}
+    for name in FIELDS:
+        a = np.asarray(arrays[name])
+        if a.dtype == np.uint32:
+            a = a.view(np.int32)
+        out[name] = torch.from_numpy(np.array(a, dtype=np.int32)).to(device)
+    return DeviceGraph(**out)
+
+
+def to_device(g: Graph, device=None) -> DeviceGraph:
+    """Upload ``g``'s tables; ``device=None`` means the current CUDA device
+    (raising when there is none), ``device="cpu"`` the CPU."""
+    nbr, ned, deg = g.neighbor_table()
+    edge_labels = (
+        g.edge_labels
+        if g.edge_labels is not None
+        else np.zeros(g.m, dtype=np.int32)
+    )
+    return device_graph_from_numpy(
+        {
+            "labels": g.labels,
+            "nbr": nbr,
+            "nbr_eid": ned,
+            "deg": deg,
+            "adj_bits": g.adjacency_bits(),
+            "edge_uv": g.edges.astype(np.int32),
+            "edge_labels": edge_labels,
+        },
+        device,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Generators (synthetic stand-ins for the paper's datasets)
+# ---------------------------------------------------------------------------
+
+def random_labeled(
+    n: int,
+    m: int,
+    n_labels: int,
+    seed: int = 0,
+    power_law: bool = True,
+) -> Graph:
+    """Random labeled graph with roughly scale-free degrees (paper's graphs
+    are scale-free social/citation networks)."""
+    rng = np.random.default_rng(seed)
+    if power_law:
+        w = 1.0 / np.arange(1, n + 1) ** 0.75
+        w /= w.sum()
+    else:
+        w = np.full(n, 1.0 / n)
+    us = rng.choice(n, size=int(m * 1.6), p=w)
+    vs = rng.choice(n, size=int(m * 1.6), p=w)
+    keep = us != vs
+    e = np.stack([us[keep], vs[keep]], axis=1)
+    e = np.sort(e, axis=1)
+    e = np.unique(e, axis=0)
+    if len(e) > m:
+        idx = rng.choice(len(e), size=m, replace=False)
+        e = e[np.sort(idx)]
+    labels = rng.integers(0, n_labels, size=n).astype(np.int32)
+    return Graph(n=n, labels=labels, edges=e.astype(np.int32))
+
+
+def citeseer_like(scale: float = 1.0, seed: int = 7) -> Graph:
+    """CiteSeer-shaped: 3,312 vertices / 4,732 edges / 6 labels (Table 1)."""
+    n = max(8, int(3312 * scale))
+    m = max(8, int(4732 * scale))
+    return random_labeled(n, m, n_labels=6, seed=seed)
+
+
+def mico_like(scale: float = 0.02, seed: int = 11) -> Graph:
+    """MiCo-shaped: 100k vertices / 1.08M edges / 29 labels (Table 1),
+    scaled down by default for the container."""
+    n = max(16, int(100_000 * scale))
+    m = max(16, int(1_080_298 * scale))
+    return random_labeled(n, m, n_labels=29, seed=seed)
+
+
+# -- tiny deterministic graphs used throughout the tests --------------------
+
+def paper_figure2() -> Graph:
+    """The 4-vertex graph of Figure 2: labels blue/yellow alternating on a
+    path 1-2-3-4 (we use ids 0..3; blue=0, yellow=1)."""
+    return Graph(
+        n=4,
+        labels=np.array([0, 1, 0, 1], dtype=np.int32),
+        edges=np.array([[0, 1], [1, 2], [2, 3]], dtype=np.int32),
+    )
+
+
+def triangle_plus_tail() -> Graph:
+    """Triangle 0-1-2 plus tail 2-3 (Figure 5's example shape)."""
+    return Graph(
+        n=5,
+        labels=np.zeros(5, dtype=np.int32),
+        edges=np.array([[0, 1], [0, 2], [1, 2], [2, 3], [3, 4]], dtype=np.int32),
+    )
+
+
+def complete(k: int, n_labels: int = 1, seed: int = 0) -> Graph:
+    rng = np.random.default_rng(seed)
+    e = np.array([(i, j) for i in range(k) for j in range(i + 1, k)], np.int32)
+    return Graph(
+        n=k,
+        labels=rng.integers(0, n_labels, size=k).astype(np.int32),
+        edges=e,
+    )

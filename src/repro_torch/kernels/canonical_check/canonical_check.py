@@ -1,0 +1,155 @@
+"""Embedding-canonicality check (paper Alg. 2) as hand-written CUDA kernels,
+port of ``repro.kernels.canonical_check.canonical_check``.
+
+Two kernels (``csrc/canonical_check.cu``, ``csrc/expand_canonical.cu``):
+
+  * :func:`canonical_check_cuda` — the standalone Alg.-2 check over a flat
+    batch of (members, cand) pairs;
+  * :func:`expand_canonical_cuda` — the *fused* expansion kernel: for every
+    parent it enumerates the neighbour-table candidates and evaluates slot
+    validity, not-a-member, first-occurrence dedup and the Alg.-2 check in
+    one pass, gathering each member↔candidate adjacency bit once.
+
+Each wrapper launches its kernel for CUDA tensors and takes the plain
+PyTorch version beside it (same contract) for CPU tensors. The Hopper
+kernels read the tables from device memory, so no graph-size guard routes
+anything elsewhere: only the shapes the kernels cannot take raise.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import bitset
+from repro_torch.core.canonical import vertex_check_bits
+from repro_torch.kernels import build
+from repro_torch.kernels.dispatch import on_cuda
+
+#: most members a row may hold (the 8-vertex pattern encoding).
+MAX_K = 8
+INT32_MAX = 2**31 - 1
+
+
+def _check_int32(name: str, t: torch.Tensor, ndim: int, device) -> None:
+    if t.dtype != torch.int32 or t.dim() != ndim:
+        raise TypeError(f"{name}: expected {ndim}-d int32, got {t.dim()}-d "
+                        f"{t.dtype}")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+
+
+def canonical_check_ref(members, n_valid, cand, adj_bits):
+    """Plain version of :func:`canonical_check_cuda` (the jnp route of the
+    JAX package, ``canonical.vertex_check``)."""
+    return vertex_check_bits(adj_bits, members, n_valid, cand)
+
+
+def canonical_check_cuda(members, n_valid, cand, adj_bits):
+    """members (B, k) int32; n_valid (B,) int32; cand (B,) int32; adj_bits
+    (N, W) int32. Returns (B,) bool — True iff members[:n_valid]+[cand] is
+    canonical. Any ``B`` is accepted, including 0."""
+    if not on_cuda(members):
+        return canonical_check_ref(members, n_valid, cand, adj_bits)
+    b, k = members.shape
+    dev = members.device
+    _check_int32("members", members, 2, dev)
+    _check_int32("n_valid", n_valid, 1, dev)
+    _check_int32("cand", cand, 1, dev)
+    _check_int32("adj_bits", adj_bits, 2, dev)
+    if not 1 <= k <= MAX_K or n_valid.shape[0] != b or cand.shape[0] != b:
+        raise ValueError(f"bad shapes: members {tuple(members.shape)}, "
+                         f"n_valid {tuple(n_valid.shape)}, cand "
+                         f"{tuple(cand.shape)}")
+    members, n_valid = members.contiguous(), n_valid.contiguous()
+    cand, adj_bits = cand.contiguous(), adj_bits.contiguous()
+    out = torch.empty((b,), dtype=torch.bool, device=dev)
+    if b == 0:
+        return out
+    lib = build.library()
+    with torch.cuda.device(dev):
+        build.count_launch("canonical_check")
+        build.check(lib.repro_canonical_check(
+            members.data_ptr(), n_valid.data_ptr(), cand.data_ptr(),
+            adj_bits.data_ptr(), b, k, adj_bits.shape[0], adj_bits.shape[1],
+            out.data_ptr(), build.stream_of(members),
+        ), "canonical_check")
+    return out
+
+
+def expand_masks(members, n_valid, nbr, adj_bits):
+    """The candidate table and validity mask of the unfused vertex
+    expansion (the jnp route of ``explore.expand_vertex``): ``cand``
+    (C, k, D) is neighbour j of member i (-1 past the row's members or the
+    member's degree); ``valid`` is slot-ok & not-a-member &
+    first-occurrence (no earlier member adjacent)."""
+    k = members.shape[1]
+    pos = torch.arange(k, device=members.device)
+    member_ok = pos[None, :] < n_valid[:, None]                    # (C, k)
+    safe = members.clamp(0, nbr.shape[0] - 1)
+    cand = nbr[safe].masked_fill(~member_ok[:, :, None], -1)       # (C, k, D)
+    slot_ok = cand >= 0
+    # not already a member of the embedding
+    is_member = (cand[:, :, :, None] == members[:, None, None, :]).any(-1)
+    # first-occurrence dedup: drop if an *earlier* member is adjacent to cand
+    adj_em = bitset.test_bit(
+        adj_bits, members[:, :, None, None], cand[:, None, :, :]
+    ) & member_ok[:, :, None, None]                                # (C, k_m, k_i, D)
+    earlier = pos[None, :, None, None] < pos[None, None, :, None]
+    seen_earlier = (adj_em & earlier).any(dim=1)                   # (C, k_i, D)
+    return cand, slot_ok & ~is_member & ~seen_earlier
+
+
+def expand_canonical_ref(members, n_valid, nbr, adj_bits):
+    """Plain version of :func:`expand_canonical_cuda`: the unfused vertex
+    expansion, reshaped to the kernel's (C, k, D) outputs."""
+    c, k = members.shape
+    d = nbr.shape[1]
+    cand, valid = expand_masks(members, n_valid, nbr, adj_bits)
+    rows = torch.arange(c, dtype=torch.int32, device=members.device)
+    flat_rows = rows.repeat_interleave(k * d)
+    canon = vertex_check_bits(
+        adj_bits, members[flat_rows], n_valid[flat_rows], cand.reshape(-1)
+    ).reshape(c, k, d)
+    return cand, valid, valid & canon
+
+
+def expand_canonical_cuda(members, n_valid, nbr, adj_bits):
+    """Fused vertex expansion: members (C, k) int32, n_valid (C,) int32,
+    nbr (N, D) int32 padded neighbour table, adj_bits (N, W) int32.
+
+    Returns ``(cand, valid, keep)``, each ``(C, k, D)``: the candidate
+    vertex per slot, the pre-canonicality validity mask (slot-ok &
+    not-member & first-occurrence) and the final keep mask (valid &
+    Alg.-2 canonical). Any ``C`` is accepted, including 0."""
+    if not on_cuda(members):
+        return expand_canonical_ref(members, n_valid, nbr, adj_bits)
+    c, k = members.shape
+    n, d = nbr.shape
+    dev = members.device
+    _check_int32("members", members, 2, dev)
+    _check_int32("n_valid", n_valid, 1, dev)
+    _check_int32("nbr", nbr, 2, dev)
+    _check_int32("adj_bits", adj_bits, 2, dev)
+    if not 1 <= k <= MAX_K or n_valid.shape[0] != c or adj_bits.shape[0] != n:
+        raise ValueError(f"bad shapes: members {tuple(members.shape)}, "
+                         f"n_valid {tuple(n_valid.shape)}, nbr {(n, d)}, "
+                         f"adj_bits {tuple(adj_bits.shape)}")
+    if c * k * d > INT32_MAX:
+        raise ValueError(f"{c}x{k}x{d} candidate slots exceed the int32 "
+                         "index range of the compaction that follows")
+    members, n_valid = members.contiguous(), n_valid.contiguous()
+    nbr, adj_bits = nbr.contiguous(), adj_bits.contiguous()
+    cand = torch.empty((c, k, d), dtype=torch.int32, device=dev)
+    valid = torch.empty((c, k, d), dtype=torch.bool, device=dev)
+    keep = torch.empty((c, k, d), dtype=torch.bool, device=dev)
+    if c == 0:
+        return cand, valid, keep
+    lib = build.library()
+    with torch.cuda.device(dev):
+        build.count_launch("expand_canonical")
+        build.check(lib.repro_expand_canonical(
+            members.data_ptr(), n_valid.data_ptr(), nbr.data_ptr(),
+            adj_bits.data_ptr(), c, k, d, n, adj_bits.shape[1],
+            cand.data_ptr(), valid.data_ptr(), keep.data_ptr(),
+            build.stream_of(members),
+        ), "expand_canonical")
+    return cand, valid, keep

@@ -1,0 +1,120 @@
+"""The port's CUDA kernels on the card (marker ``cuda``; they skip without
+a CUDA device — a CUDA kernel has no CPU mode). Each kernel is held against
+its plain PyTorch version on the same tensors (integers and booleans:
+exact), and a whole run on the card against the same run on the CPU. This
+file imports neither JAX nor the JAX package, so it runs where only the
+port is installed:
+
+    PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import graph as TG
+from repro_torch.core import RunConfig, run
+from repro_torch.core.apps import CliquesApp, MotifsApp
+from repro_torch.kernels import aggregate, build, compact
+from repro_torch.kernels.canonical_check.canonical_check import (
+    canonical_check_cuda,
+    canonical_check_ref,
+    expand_canonical_cuda,
+    expand_canonical_ref,
+)
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the CUDA kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def _members(rng, b, k, n):
+    members = np.full((b, k), -1, np.int32)
+    n_valid = rng.integers(0, k + 1, b).astype(np.int32)
+    for i in range(b):
+        members[i, : n_valid[i]] = rng.choice(n, size=n_valid[i], replace=False)
+    return torch.from_numpy(members), torch.from_numpy(n_valid)
+
+
+def _codes(rng, b):
+    w0 = 3 | (rng.integers(0, 8, b).astype(np.int64) << 4)
+    w1 = np.zeros(b, np.int64)
+    w2 = np.zeros(b, np.int64)
+    for i in range(4):
+        w1 |= rng.integers(126, 131, b).astype(np.int64) << (8 * i)
+        w2 |= rng.integers(126, 131, b).astype(np.int64) << (8 * i)
+    return torch.from_numpy(np.stack([w0, w1, w2], axis=1))
+
+
+def test_kernels_match_plain_versions(cuda_device):
+    dev = cuda_device
+    g = TG.to_device(TG.random_labeled(300, 2000, n_labels=3, seed=4), dev)
+    rng = np.random.default_rng(0)
+    members, n_valid = (t.to(dev) for t in _members(rng, 777, 3, g.n))
+    before = dict(build.LAUNCHES)
+
+    got = expand_canonical_cuda(members, n_valid, g.nbr, g.adj_bits)
+    want = expand_canonical_ref(members, n_valid, g.nbr, g.adj_bits)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+    cand = got[0].reshape(-1)
+    rows = torch.arange(777, device=dev).repeat_interleave(3 * g.max_degree)
+    assert torch.equal(
+        canonical_check_cuda(members[rows], n_valid[rows], cand, g.adj_bits),
+        canonical_check_ref(members[rows], n_valid[rows], cand, g.adj_bits),
+    )
+    # an empty batch launches nothing and still has the contract's shapes
+    empty = canonical_check_cuda(members[:0], n_valid[:0], cand[:0],
+                                 g.adj_bits)
+    assert empty.shape == (0,)
+
+    keep = got[2].reshape(-1)
+    for cap in (1, 4096, 1 << 20):
+        idx, count = compact.stream_compact_cuda(keep, cap)
+        ref_idx, ref_count = compact.stream_compact_ref(keep, cap)
+        assert torch.equal(idx, ref_idx) and torch.equal(count, ref_count)
+    # an unaligned view takes the byte-wise flag loads
+    for a, b in zip(compact.stream_compact_cuda(keep[3:], 4096),
+                    compact.stream_compact_ref(keep[3:], 4096)):
+        assert torch.equal(a, b)
+
+    codes = _codes(rng, 50_000).to(dev)
+    valid = torch.rand(50_000, device=dev) < 0.9
+    sc, sv, _ = aggregate.sort_codes(codes, valid)
+    new = sv & torch.cat([torch.ones(1, dtype=torch.bool, device=dev),
+                          (sc[1:] != sc[:-1]).any(1)])
+    for cap in (8, 1 << 16):
+        for a, b in zip(aggregate.seg_unique_cuda(new, sv, cap),
+                        aggregate.seg_unique_ref(new, sv, cap)):
+            assert torch.equal(a, b)
+    for use_kernel in (False, True):
+        out = aggregate.bin_rows(codes, valid, 1 << 16, use_kernel=use_kernel)
+        ref = aggregate.bin_rows(codes.cpu(), valid.cpu(), 1 << 16)
+        for a, b in zip(out, ref):
+            assert torch.equal(a.cpu(), b)
+    torch.cuda.synchronize()
+    for name in build.LAUNCHES:
+        assert build.LAUNCHES[name] > before[name], name
+
+
+@pytest.mark.parametrize("app", [MotifsApp(max_size=3), CliquesApp(max_size=4)])
+@pytest.mark.parametrize("fused", [False, True])
+def test_card_run_equals_cpu_run(cuda_device, app, fused):
+    g = TG.mico_like(0.003)
+    cfg_kw = dict(chunk_size=256, initial_capacity=64, fused_expand=fused)
+    gpu = run(g, app, RunConfig(**cfg_kw), device=cuda_device)
+    cpu = run(g, app, RunConfig(**cfg_kw), device="cpu")
+    assert gpu.patterns == cpu.patterns
+    assert gpu.stats.cost_model["use_pallas"] is True
+    for a, b in zip(gpu.stats.steps, cpu.stats.steps):
+        assert (a.n_children, a.n_generated, a.n_canonical, a.n_host_syncs,
+                a.n_quick_patterns, a.bytes_to_host) == (
+            b.n_children, b.n_generated, b.n_canonical, b.n_host_syncs,
+            b.n_quick_patterns, b.bytes_to_host)
+    for size, emb in cpu.embeddings.items():
+        np.testing.assert_array_equal(gpu.embeddings[size], emb)
