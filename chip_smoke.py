@@ -11,13 +11,22 @@ Phases, in order; any failure exits non-zero and prints no result:
      shapes the main path gives it on ``mico_like(0.1)`` (integers and
      booleans: exact equality), and time kernel, plain version and, where
      one exists, the one PyTorch call that computes the same function;
+     the canonical refine also on seeded codes of every nv from 2 to 8,
+     with and without orbits; then one chunk program per route under
+     sync debug mode "error";
   4. the card port against the CPU port on ``mico_like(0.005)``: motifs and
-     cliques, identical patterns, per-size embedding counts and per-step
-     counters;
+     cliques with the default config, motifs under
+     ``cost_model="force_device"`` and under
+     ``canonical_placement="host_async"``, and size-4 motifs under
+     ``force_device`` on ``mico_like(0.001)``: identical patterns,
+     per-size embedding counts and per-step counters;
   5. the main path through ``repro_torch.core.run`` on ``mico_like(0.1)``
-     (MiCo/10) with the default static config: motifs unfused and fused,
-     then cliques; the launch counts are zeroed just before each run and
-     read just after, and every kernel must have launched.
+     (MiCo/10): motifs unfused and fused and cliques with the default
+     static config, then motifs under ``cost_model="force_device"`` (the
+     radix bin and level 2 on the device); the launch counts are zeroed
+     just before each run and read just after, and every kernel must have
+     launched. The refine row is then timed on the distinct table that
+     level 2 of the last run's step 3 refined.
 
 It prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. ``--json PATH`` also writes the details
@@ -41,7 +50,12 @@ SRC = ROOT / "src"
 
 #: published H100 SXM device-memory rate (NVIDIA data sheet), bytes/s.
 HBM_BYTES_PER_S = 3.35e12
+#: H100 SXM int32 rate: 132 SMs x 64 INT32 lanes x 1.98 GHz (the lanes are
+#: half the 128 FP32 lanes behind the data sheet's 67 TFLOP/s FP32, which
+#: counts an FMA as two), operations/s.
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
 CHUNK = 4096                   # RunConfig.chunk_size default
+REFINE_ROWS = 3000             # seeded quick codes per nv (2/3 of it at nv 8)
 AGG_QCAP = 4096                # RunConfig.agg_qcap default
 
 
@@ -100,6 +114,25 @@ def max_abs_err(torch, got, want) -> int:
     return err
 
 
+def kernel_row(name, src, replaces, err, ms, plain_ms, nbytes, library_ms,
+               ops=0):
+    """One entry of the kernels line: the bound is the larger of the bytes
+    over the memory rate and the int32 operations over their rate."""
+    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    op_ms = ops / INT32_OPS_PER_S * 1e3
+    row = {
+        "name": name, "route": "cuda", "source": src, "replaces": replaces,
+        "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": max(byte_ms, op_ms),
+        "bound_by": "bytes" if byte_ms >= op_ms else "operations",
+        "library_ms": library_ms, "bytes": nbytes, "ops": ops,
+    }
+    log(f"  {name}: max_abs_err={err} ms={ms:.4f} plain_ms={plain_ms:.4f}"
+        f" bound_ms={row['bound_ms']:.4f} ({row['bound_by']}) "
+        f"library_ms={library_ms}")
+    return row
+
+
 def kernel_checks(torch, np, dg, g):
     """Phase 3: every kernel against its plain version at main-path shapes
     (the first size-2 chunk of mico_like(0.1) and what it produces)."""
@@ -120,18 +153,6 @@ def kernel_checks(torch, np, dg, g):
     n_member_rows = int(torch.unique(members).numel())
     rows = []
 
-    def record(name, src, replaces, err, ms, plain_ms, nbytes, library_ms):
-        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        rows.append({
-            "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": 0, "max_abs_err": err,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": "bytes", "library_ms": library_ms,
-            "bytes": nbytes,
-        })
-        log(f"  {name}: max_abs_err={err} ms={ms:.4f} plain_ms={plain_ms:.4f}"
-            f" bound_ms={bound_ms:.4f} library_ms={library_ms}")
-
     # -- expand_canonical: members (4096, 2), D = max degree ----------------
     got = expand_canonical_cuda(members, n_valid, dg.nbr, dg.adj_bits)
     want = expand_canonical_ref(members, n_valid, dg.nbr, dg.adj_bits)
@@ -144,10 +165,10 @@ def kernel_checks(torch, np, dg, g):
         members, n_valid, dg.nbr, dg.adj_bits), 3, 1)
     nbytes = (c * k * 4 + c * 4 + n_member_rows * (d + w) * 4
               + c * k * d * (4 + 1 + 1))
-    record("expand_canonical",
-           "src/repro_torch/kernels/csrc/expand_canonical.cu",
-           "src/repro/kernels/canonical_check/canonical_check.py:252",
-           err, ms, plain, nbytes, None)
+    rows.append(kernel_row(
+        "expand_canonical", "src/repro_torch/kernels/csrc/expand_canonical.cu",
+        "src/repro/kernels/canonical_check/canonical_check.py:252",
+        err, ms, plain, nbytes, None))
     cand, valid, keep3 = got
     del want
 
@@ -165,10 +186,10 @@ def kernel_checks(torch, np, dg, g):
     plain = time_ms(torch, lambda: canonical_check_ref(
         fm, fn_, fc, dg.adj_bits), 3, 1)
     nbytes = b * k * 4 + b * 4 + b * 4 + n_member_rows * w * 4 + b
-    record("canonical_check",
-           "src/repro_torch/kernels/csrc/canonical_check.cu",
-           "src/repro/kernels/canonical_check/canonical_check.py:87",
-           err, ms, plain, nbytes, None)
+    rows.append(kernel_row(
+        "canonical_check", "src/repro_torch/kernels/csrc/canonical_check.cu",
+        "src/repro/kernels/canonical_check/canonical_check.py:87",
+        err, ms, plain, nbytes, None))
     log(f"  canonical_check batch: members {tuple(fm.shape)}, "
         f"{b} candidates")
     del fm, fn_, fc, got, want
@@ -191,8 +212,9 @@ def kernel_checks(torch, np, dg, g):
     plain = time_ms(torch, lambda: compact.stream_compact_ref(keep, out_cap), 5)
     lib_ms = time_ms(torch, lambda: torch.nonzero(keep), 5)
     nbytes = keep.numel() + out_cap * 4 + 4
-    record("stream_compact", "src/repro_torch/kernels/csrc/stream_compact.cu",
-           "src/repro/kernels/compact.py:91", err, ms, plain, nbytes, lib_ms)
+    rows.append(kernel_row(
+        "stream_compact", "src/repro_torch/kernels/csrc/stream_compact.cu",
+        "src/repro/kernels/compact.py:91", err, ms, plain, nbytes, lib_ms))
     log(f"  stream_compact: B={keep.numel()} kept={kept} out_cap={out_cap}")
 
     # -- seg_unique: the chunk's children codes, sorted ---------------------
@@ -224,23 +246,212 @@ def kernel_checks(torch, np, dg, g):
         valid_rows, dim=0, return_inverse=True, return_counts=True), 5)
     bsz = new.numel()
     nbytes = 2 * bsz + 4 * bsz + 2 * acap * 4 + 4
-    record("seg_unique", "src/repro_torch/kernels/csrc/seg_unique.cu",
-           "src/repro/kernels/aggregate.py:110", err, ms, plain, nbytes, lib_ms)
+    rows.append(kernel_row(
+        "seg_unique", "src/repro_torch/kernels/csrc/seg_unique.cu",
+        "src/repro/kernels/aggregate.py:110", err, ms, plain, nbytes, lib_ms))
     log(f"  seg_unique: B={bsz} cap={acap} distinct={n_distinct}")
+    del got, want, sc, sv, new, valid_rows
+
+    # -- radix passes: the same chunk's child codes, as the radix bin of the
+    # chunk program gets them ----------------------------------------------
+    codes, cvalid = qp.codes, child_nv > 0
+    extra = {"radix": radix_checks(torch, codes, cvalid, reps, rows)}
+    del qp, codes, cvalid, children
+    torch.cuda.empty_cache()
+    extra["refine_synthetic"] = refine_synthetic_checks(torch, np, dev)
     build.reset_launches()
-    return rows
+    return rows, extra
+
+
+def radix_checks(torch, codes, valid, reps, rows):
+    """The radix sort against its plain version (codes, valid and order
+    exactly), then its two kernels one varying pass at a time: pass
+    (w1, byte 0), whose input order on the main path is the identity (the
+    w2 passes before it are constant and skipped)."""
+    from repro_torch.kernels import aggregate, radix_bin
+
+    b = codes.shape[0]
+    got = radix_bin.radix_sort_codes(codes, valid)
+    want = radix_bin.radix_sort_codes_ref(codes, valid)
+    torch.cuda.synchronize()
+    err = max_abs_err(torch, got, want)
+    need(err == 0, f"radix_sort_codes differs from its plain version ({err})")
+    del got, want
+    sort_ms = time_ms(torch, lambda: radix_bin.radix_sort_codes(codes, valid),
+                      reps)
+    sort_plain = time_ms(torch, lambda: radix_bin.radix_sort_codes_ref(
+        codes, valid), 3, 1)
+    sort_lib = time_ms(torch, lambda: aggregate.sort_codes(codes, valid), 5)
+    vary = torch.zeros(4, dtype=torch.int32, device=codes.device)
+    radix_bin.radix_hist_cuda(codes, valid, torch.arange(
+        b, dtype=torch.int32, device=codes.device), 2, 0, vary, True)
+    vary_ref = radix_bin.digit_vary_ref(codes, valid)
+    need(torch.equal(vary, vary_ref), "radix vary mask differs from its "
+         "plain version")
+    varying = [(w, sh) for w, sh in radix_bin._PASSES
+               if (int(vary_ref[w]) >> sh) & 0xFF]
+    need((1, 0) in varying, f"pass (w1, byte 0) does not vary: {varying}")
+    order = torch.arange(b, dtype=torch.int32, device=codes.device)
+    hist, totals = radix_bin.radix_hist_cuda(codes, valid, order, 1, 0, vary,
+                                             False)
+    ref = radix_bin.radix_hist_ref(codes, valid, order, 1, 0,
+                                   radix_bin.RADIX_TILE)
+    torch.cuda.synchronize()
+    herr = max_abs_err(torch, (hist, totals), ref)
+    need(herr == 0, f"radix_hist differs from its plain version ({herr})")
+    out = radix_bin.radix_scatter_cuda(codes, valid, order, 1, 0, vary, hist,
+                                       totals)
+    sref = radix_bin.radix_scatter_ref(codes, valid, order, 1, 0)
+    torch.cuda.synchronize()
+    serr = max_abs_err(torch, (out,), (sref,))
+    need(serr == 0, f"radix_scatter differs from its plain version ({serr})")
+    del out, sref, ref
+    h_ms = time_ms(torch, lambda: radix_bin.radix_hist_cuda(
+        codes, valid, order, 1, 0, vary, False, hist, totals), reps)
+    h_plain = time_ms(torch, lambda: radix_bin.radix_hist_ref(
+        codes, valid, order, 1, 0, radix_bin.RADIX_TILE), 5)
+    spare = torch.empty_like(order)
+    s_ms = time_ms(torch, lambda: radix_bin.radix_scatter_cuda(
+        codes, valid, order, 1, 0, vary, hist, totals, spare), reps)
+    s_plain = time_ms(torch, lambda: radix_bin.radix_scatter_ref(
+        codes, valid, order, 1, 0), 5)
+    digits = radix_bin._pass_digits(codes, valid, order, 1, 0)
+    s_lib = time_ms(torch, lambda: torch.sort(digits, stable=True), 5)
+    nb = -(-b // radix_bin.RADIX_TILE)
+    side = 256 * nb * 4 + 256 * 4
+    rows.append(kernel_row(
+        "radix_hist", "src/repro_torch/kernels/csrc/radix_sort.cu",
+        "src/repro/kernels/radix_bin.py:83", herr, h_ms, h_plain,
+        b * (4 + 8) + side, None))
+    rows.append(kernel_row(
+        "radix_scatter", "src/repro_torch/kernels/csrc/radix_sort.cu",
+        "src/repro/kernels/radix_bin.py:92", serr, s_ms, s_plain,
+        b * (4 + 8 + 4) + side, s_lib))
+    info = {"rows": b, "valid": int(valid.sum()), "varying_passes": varying,
+            "sort_ms": sort_ms, "sort_plain_ms": sort_plain,
+            "sort_codes_library_ms": sort_lib}
+    log(f"  radix: B={b}, {len(varying)} of 13 passes vary {varying}; whole "
+        f"sort {sort_ms:.4f} ms, plain {sort_plain:.4f} ms, two stable "
+        f"torch.sort (sort_codes) {sort_lib:.4f} ms")
+    return info
+
+
+def refine_ops(nv: int) -> int:
+    """int32 operations of one (row, permutation) of the refine: 4 per
+    adjacency bit, 4 per label, 3 for the compare."""
+    return 4 * nv * (nv - 1) // 2 + 4 * nv + 3
+
+
+def refine_synthetic_checks(torch, np, dev):
+    """canonical_refine against its plain version on seeded quick codes of
+    every nv from 2 to 8 (labels included), orbits off and on, one launch
+    per nv and one for the whole mixed batch."""
+    from repro_torch.core import canon_math
+    from repro_torch.kernels import canonical_refine
+
+    rng = np.random.default_rng(12)
+    parts, info = [], {}
+    for nv in range(2, 9):
+        n = REFINE_ROWS if nv < 8 else REFINE_ROWS * 2 // 3
+        upper = np.triu(rng.random((n, nv, nv)) < 0.5, 1)
+        labels = rng.integers(0, 29, (n, nv))
+        codes = np.array([canon_math.encode(nv, upper[i] | upper[i].T,
+                                            labels[i]) for i in range(n)],
+                         dtype=np.int64)
+        parts.append(codes)
+        c = torch.from_numpy(codes).to(dev)
+        v = torch.ones(n, dtype=torch.bool, device=dev)
+        errs = []
+        for orbits in (False, True):
+            got = canonical_refine.refine_cuda(c, v, (nv,), with_orbits=orbits)
+            want = canonical_refine.refine_codes_ref(c, v, (nv,),
+                                                     with_orbits=orbits)
+            torch.cuda.synchronize()
+            errs.append(max_abs_err(torch, got, want))
+        need(max(errs) == 0, f"canonical_refine differs from its plain "
+             f"version at nv={nv} ({errs})")
+        ms = time_ms(torch, lambda: canonical_refine.refine_cuda(
+            c, v, (nv,)), 5)
+        plain = time_ms(torch, lambda: canonical_refine.refine_codes_ref(
+            c, v, (nv,)), 2, 1)
+        ops = n * math.factorial(nv) * refine_ops(nv)
+        info[nv] = {"rows": n, "ms": ms, "plain_ms": plain, "ops": ops,
+                    "bound_ms": ops / INT32_OPS_PER_S * 1e3}
+        log(f"  canonical_refine nv={nv}: {n} rows, max_abs_err=0 (orbits "
+            f"off, on), ms={ms:.4f} plain_ms={plain:.4f} ops bound "
+            f"{info[nv]['bound_ms']:.4f} ms")
+    mixed = torch.from_numpy(np.concatenate(parts)).to(dev)
+    v = torch.rand(mixed.shape[0], device=dev) < 0.95
+    for orbits in (False, True):
+        got = canonical_refine.refine_cuda(mixed, v, tuple(range(2, 9)),
+                                           with_orbits=orbits)
+        want = canonical_refine.refine_codes_ref(mixed, v, tuple(range(2, 9)),
+                                                 with_orbits=orbits)
+        torch.cuda.synchronize()
+        err = max_abs_err(torch, got, want)
+        need(err == 0, f"canonical_refine differs on the mixed batch ({err})")
+    log("  canonical_refine: mixed nv 2-8 batch with invalid rows, orbits "
+        "off and on: max_abs_err=0")
+    return info
+
+
+def refine_main_table(torch, table, reps=15):
+    """The refine row, at the distinct table level 2 refined in step 3 of
+    the force_device main path run; then where that step's ``t_canon``
+    goes: the whole device level-2 program (refine + weighted re-bin) on
+    the card, and the host's memo seeding of the same Q rows."""
+    from repro_torch.core import aggregation, pattern
+    from repro_torch.kernels import canonical_refine
+
+    u, c, uv, cap, nvs = table
+    got = canonical_refine.refine_cuda(u, uv, nvs)
+    want = canonical_refine.refine_codes_ref(u, uv, nvs)
+    torch.cuda.synchronize()
+    err = max_abs_err(torch, got, want)
+    need(err == 0, f"canonical_refine differs from its plain version on the "
+         f"main path's table ({err})")
+    ms = time_ms(torch, lambda: canonical_refine.refine_cuda(u, uv, nvs), reps)
+    plain = time_ms(torch, lambda: canonical_refine.refine_codes_ref(
+        u, uv, nvs), 5)
+    q, live = u.shape[0], int(uv.sum())
+    nv = nvs[0]
+    nbytes = q * (24 + 1 + 24 + 32 + 32) + math.factorial(nv) * 32
+    ops = live * math.factorial(nv) * refine_ops(nv)
+    log(f"  canonical_refine on the step-3 table: {q} rows, {live} valid, "
+        f"nv {nv}")
+    row = kernel_row(
+        "canonical_refine", "src/repro_torch/kernels/csrc/canonical_refine.cu",
+        "src/repro/kernels/canonical_refine.py:266", err, ms, plain, nbytes,
+        None, ops)
+    program_ms = time_ms(torch, lambda: aggregation._level2_program(
+        u, c, uv, cap, nvs, True, "radix"), 5)
+    quick = u[:live].cpu().numpy()
+    canon, sigma, _ = (t[:live].cpu().numpy() for t in got)
+    pattern.clear_memo()
+    t0 = time.perf_counter()
+    pattern.seed_memo(quick, canon, sigma)
+    seed_s = time.perf_counter() - t0
+    pattern.clear_memo()
+    log(f"  step-3 device level 2: program {program_ms:.3f} ms on the card, "
+        f"host memo seeding of {live} rows {seed_s:.4f} s")
+    return row, {"rows": q, "valid": live, "program_ms": program_ms,
+                 "seed_memo_s": seed_s}
 
 
 def chunk_program_is_sync_free(torch, dg, members, n_valid):
     """One chunk program per route under sync debug mode "error": any
     hidden host sync in expansion, filter, compaction or the partial bin
-    raises."""
+    (sort bin; radix bin through its kernels and through the fused-key
+    route) raises."""
     from repro_torch.core import explore
     from repro_torch.core.apps import CliquesApp, MotifsApp
 
-    for app, fused in ((MotifsApp(max_size=3), False),
-                       (MotifsApp(max_size=3), True),
-                       (CliquesApp(max_size=4), False)):
+    motifs = MotifsApp(max_size=3)
+    for app, fused, agg_bin, agg_kernel in (
+            (motifs, False, "sort", True), (motifs, True, "sort", True),
+            (CliquesApp(max_size=4), False, "sort", True),
+            (motifs, False, "radix", True), (motifs, True, "radix", True),
+            (motifs, False, "radix", False)):
         torch.cuda.synchronize()
         torch.cuda.set_sync_debug_mode("error")
         try:
@@ -248,7 +459,8 @@ def chunk_program_is_sync_free(torch, dg, members, n_valid):
                 dg, members, n_valid, 1 << 22, mode="vertex", app=app,
                 with_aggregates=app.wants_patterns, agg_qcap=AGG_QCAP,
                 with_local_verts=False, use_pallas=True, fused=fused,
-                compact_kernel=True, aggregate_kernel=True,
+                compact_kernel=True, aggregate_kernel=agg_kernel,
+                aggregate_bin=agg_bin,
             )
         finally:
             torch.cuda.set_sync_debug_mode("default")
@@ -265,13 +477,13 @@ def step_counters(res):
     return [{f: getattr(s, f) for f in INT_FIELDS} for s in res.stats.steps]
 
 
-def card_vs_cpu(torch, run, G, apps):
+def card_vs_cpu(torch, run, G, cases):
     """Phase 4: identical results from the card and the CPU port."""
-    g = G.mico_like(0.005)
     out = {}
-    for name, app in apps:
-        cpu = run(g, app, device="cpu")
-        gpu = run(g, app)
+    for name, scale, app, cfg in cases:
+        g = G.mico_like(scale)
+        cpu = run(g, app, cfg, device="cpu")
+        gpu = run(g, app, cfg)
         need(cpu.patterns == gpu.patterns, f"{name}: patterns differ")
         need({k: len(v) for k, v in cpu.embeddings.items()}
              == {k: len(v) for k, v in gpu.embeddings.items()},
@@ -287,8 +499,32 @@ def card_vs_cpu(torch, run, G, apps):
     return out
 
 
+class Level2Tables:
+    """Records the distinct table each device level 2 refines (references
+    to ``_level2_program``'s inputs, which nothing writes after the call:
+    no copy adds to the run's time or peak memory), so the refine row can
+    be timed on the main path's own table after the run."""
+
+    def __init__(self, aggregation):
+        self.agg = aggregation
+        self.orig = aggregation._level2_program
+        self.last = None
+
+    def __enter__(self):
+        def spy(u, c, uv, cap, nvs, *rest):
+            self.last = (u, c, uv, cap, nvs)
+            return self.orig(u, c, uv, cap, nvs, *rest)
+
+        self.agg._level2_program = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.agg._level2_program = self.orig
+
+
 def main_path(torch, np, run, RunConfig, G, build, apps):
     """Phase 5: the main path on mico_like(0.1), kernels counted."""
+    from repro_torch.core import aggregation
     from repro_torch.core.runtime.serial import _DRAIN_WINDOW
 
     g = G.mico_like(0.1)
@@ -296,15 +532,17 @@ def main_path(torch, np, run, RunConfig, G, build, apps):
     wedges = int((deg * (deg - 1) // 2).sum())
     totals = {name: 0 for name in build.LAUNCHES}
     runs, results = [], {}
+    level2_table = None
     for label, app, cfg in apps:
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
-        build.reset_launches()
-        t0 = time.perf_counter()
-        res = run(g, app, cfg)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = dict(build.LAUNCHES)
+        with Level2Tables(aggregation) as tables:
+            build.reset_launches()
+            t0 = time.perf_counter()
+            res = run(g, app, cfg)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = dict(build.LAUNCHES)
         for name, v in launches.items():
             totals[name] += v
         peak = torch.cuda.max_memory_allocated()
@@ -325,9 +563,12 @@ def main_path(torch, np, run, RunConfig, G, build, apps):
         rec = {"run": label, "wall_s": wall, "peak_bytes": peak,
                "launches": launches, "steps": steps,
                "patterns": len(res.patterns),
-               "chunk_signatures": len(res.stats.chunk_signatures)}
+               "chunk_signatures": len(res.stats.chunk_signatures),
+               "cost_model": res.stats.cost_model}
         runs.append(rec)
         results[label] = res
+        if tables.last is not None:
+            level2_table = tables.last
         log(f"  {label}: wall {wall:.3f} s, peak {peak / 2**30:.2f} GiB, "
             f"launches {launches}")
         for s in steps:
@@ -336,9 +577,22 @@ def main_path(torch, np, run, RunConfig, G, build, apps):
                 f"{s['n_host_syncs']} quick {s['quick_patterns']} canonical "
                 f"{s['canonical_patterns']}")
 
-    mot, fused, cli = (results["motifs_unfused"], results["motifs_fused"],
-                       results["cliques"])
+    mot, fused, cli, fdev = (
+        results["motifs_unfused"], results["motifs_fused"],
+        results["cliques"], results["motifs_force_device"])
     need(mot.patterns == fused.patterns, "fused and unfused motifs differ")
+    need(fdev.patterns == mot.patterns,
+         "force_device motifs differ from the host-placed motifs")
+    fd = runs[-1]
+    need(fd["cost_model"]["aggregate_bin"] == "radix"
+         and fd["cost_model"]["canonical_placement"] == "device",
+         f"force_device did not pick the radix bin and device level 2: "
+         f"{fd['cost_model']}")
+    for name in ("radix_hist", "radix_scatter", "canonical_refine"):
+        need(fd["launches"][name] > 0,
+             f"{name} never launched in the force_device run")
+    need(level2_table is not None and level2_table[4] == (3,),
+         "no size-3 level-2 table was refined on the device")
     for s in mot.stats.steps:
         need(s.n_host_syncs <= 2, f"motifs step {s.step}: "
              f"{s.n_host_syncs} host syncs")
@@ -363,7 +617,7 @@ def main_path(torch, np, run, RunConfig, G, build, apps):
     log(f"  checks: {g.m} edges, {n_tri} triangles, {by_size.get(3)} size-3 "
         f"motifs = wedges - 2 triangles; cliques per size "
         f"{ {k: len(v) for k, v in cli.embeddings.items()} }")
-    return totals, runs
+    return totals, runs, level2_table
 
 
 def main(argv=None) -> int:
@@ -404,7 +658,7 @@ def main(argv=None) -> int:
     log("[3] kernels vs plain versions at main-path shapes (mico_like(0.1))")
     g = G.mico_like(0.1)
     dg = G.to_device(g)
-    kernels = kernel_checks(torch, np, dg, g)
+    kernels, extra = kernel_checks(torch, np, dg, g)
     members = torch.from_numpy(g.edges[:CHUNK].astype(np.int32)).to(dg.device)
     n_valid = torch.full((CHUNK,), 2, dtype=torch.int32, device=dg.device)
     chunk_program_is_sync_free(torch, dg, members, n_valid)
@@ -413,18 +667,31 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     # ---- 4. card port vs CPU port ----------------------------------------
-    log("[4] card port vs CPU port on mico_like(0.005)")
+    log("[4] card port vs CPU port on mico_like(0.005) and (0.001)")
     small = card_vs_cpu(torch, run, G, [
-        ("motifs", MotifsApp(max_size=3)), ("cliques", CliquesApp(max_size=4)),
+        ("motifs", 0.005, MotifsApp(max_size=3), RunConfig()),
+        ("cliques", 0.005, CliquesApp(max_size=4), RunConfig()),
+        ("motifs_force_device", 0.005, MotifsApp(max_size=3),
+         RunConfig(cost_model="force_device")),
+        ("motifs_host_async", 0.005, MotifsApp(max_size=3),
+         RunConfig(canonical_placement="host_async")),
+        ("motifs4_force_device", 0.001, MotifsApp(max_size=4),
+         RunConfig(cost_model="force_device")),
     ])
 
     # ---- 5. the main path --------------------------------------------------
     log("[5] main path on mico_like(0.1) through repro_torch.core.run")
-    totals, runs = main_path(torch, np, run, RunConfig, G, build, [
+    totals, runs, level2_table = main_path(torch, np, run, RunConfig, G, build, [
         ("motifs_unfused", MotifsApp(max_size=3), RunConfig()),
         ("motifs_fused", MotifsApp(max_size=3), RunConfig(fused_expand=True)),
         ("cliques", CliquesApp(max_size=4), RunConfig()),
+        ("motifs_force_device", MotifsApp(max_size=3),
+         RunConfig(cost_model="force_device")),
     ])
+    row, extra["level2_step3"] = refine_main_table(torch, level2_table)
+    kernels.append(row)
+    del level2_table
+    build.reset_launches()
     for row in kernels:
         row["launches"] = totals[row["name"]]
         need(row["launches"] > 0,
@@ -434,7 +701,7 @@ def main(argv=None) -> int:
         args.json.parent.mkdir(parents=True, exist_ok=True)
         args.json.write_text(json.dumps({
             "card": kind, "nvidia_smi": smi, "kernels": kernels,
-            "card_vs_cpu": small, "main_path": runs,
+            "card_vs_cpu": small, "main_path": runs, **extra,
             "build_seconds": build.last_build_seconds,
             "total_seconds": time.perf_counter() - t_all,
         }, indent=1))

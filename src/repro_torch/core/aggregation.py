@@ -5,14 +5,15 @@ Level 1 runs on the device over all embeddings of the step: quick-pattern
 codes are binned into distinct codes and counts (:class:`DeviceLevel1`,
 ``kernels/aggregate.py`` sort + segment-reduce), and only O(Q) bytes — the
 distinct codes packed to 32-bit words and their counts — cross to the host.
-Level 2 maps quick codes to canonical codes on the host
-(:func:`repro_torch.core.pattern.build_pattern_table`) and folds the
-counts. :func:`aggregate_rows` is the host reference path
-(``device_aggregate=False``), bit-identical by construction because both
-paths emit distinct codes in ascending lexicographic order.
-
-Level 2 on the device and the overlapped host level 2 are not ported yet
-(ROADMAP.md).
+Level 2 maps quick codes to canonical codes and folds the counts, at one
+of three placements (DESIGN.md §15): on the host
+(:func:`repro_torch.core.pattern.build_pattern_table`), on a background
+thread that the loop joins at the next seal (``host_async``,
+:func:`submit_level2`), or on the device (:func:`device_level2`, the
+canonical-refine kernel plus a weighted re-bin). :func:`aggregate_rows` is
+the host reference path (``device_aggregate=False``), bit-identical by
+construction because every path emits distinct codes in ascending
+lexicographic order.
 """
 from __future__ import annotations
 
@@ -24,6 +25,7 @@ import torch
 from repro_torch.core import obs
 from repro_torch.core import pattern as pattern_lib
 from repro_torch.kernels import aggregate as agg_kernel
+from repro_torch.kernels import canonical_refine
 
 
 def _next_pow2(x: int) -> int:
@@ -60,10 +62,12 @@ def _unique_rows3(codes: np.ndarray):
     return uniq, inv
 
 
-def aggregate_rows(codes: np.ndarray) -> tuple[StepAggregates, np.ndarray]:
+def aggregate_rows(codes: np.ndarray,
+                   canon_fn=None) -> tuple[StepAggregates, np.ndarray]:
     """Full two-level aggregation for one step's embeddings over host
     (B, 3) int64 quick codes — the ``device_aggregate=False`` reference
-    path. Returns (aggregates, per-embedding canonical slot)."""
+    path. ``canon_fn`` is the level-2 miss hook of the device placement.
+    Returns (aggregates, per-embedding canonical slot)."""
     codes = np.asarray(codes)
     b = len(codes)
     if b == 0:
@@ -78,7 +82,7 @@ def aggregate_rows(codes: np.ndarray) -> tuple[StepAggregates, np.ndarray]:
         return empty, np.full(b, -1, np.int32)
     uniq, inv = _unique_rows3(codes)
     table, counts = finish_quick_level2(
-        uniq, np.bincount(inv, minlength=len(uniq))
+        uniq, np.bincount(inv, minlength=len(uniq)), canon_fn=canon_fn
     )
     agg = StepAggregates(
         canon_codes=table.canon_codes,
@@ -320,12 +324,145 @@ def build_step_aggregates(table: pattern_lib.PatternTable,
     return agg
 
 
-def finish_quick_level2(uniq: np.ndarray, counts_q: np.ndarray):
+def finish_quick_level2(uniq: np.ndarray, counts_q: np.ndarray,
+                        canon_fn=None):
     """Host level 2 over level-1 state: canonicalise the Q distinct quick
     codes (memoised, :func:`pattern.build_pattern_table`) and fold the
     quick counts to canonical slots. Returns ``(table, counts (Pc,)
     int64)``."""
-    table = pattern_lib.build_pattern_table(uniq)
+    table = pattern_lib.build_pattern_table(uniq, canon_fn=canon_fn)
     counts = np.zeros(len(table.canon_codes), dtype=np.int64)
     np.add.at(counts, table.quick_to_canon, counts_q.astype(np.int64))
     return table, counts
+
+
+# ---------------------------------------------------------------------------
+# Level-2 placement (DESIGN.md §15): device re-bin + async host overlap
+# ---------------------------------------------------------------------------
+
+def async_level2_ok(app) -> bool:
+    """True when level 2 may run off the critical path (``host_async``).
+
+    The deferred table must not be consulted mid-step: apps that override
+    ``pattern_filter`` or the per-row ``aggregation_filter``, or that
+    consume orbit domains, need the table before expansion — they run the
+    synchronous host placement instead (bit-identical output either
+    way)."""
+    from repro_torch.core.api import MiningApp
+
+    return (
+        app.wants_patterns
+        and not app.wants_domains
+        and type(app).pattern_filter is MiningApp.pattern_filter
+        and type(app).aggregation_filter is MiningApp.aggregation_filter
+    )
+
+
+_ASYNC_EXECUTOR = None
+
+
+def _async_executor():
+    global _ASYNC_EXECUTOR
+    if _ASYNC_EXECUTOR is None:
+        from concurrent.futures import ThreadPoolExecutor
+
+        # one worker: supersteps submit at most one level-2 batch each and
+        # join it at the next seal, and FIFO keeps memo writes ordered
+        _ASYNC_EXECUTOR = ThreadPoolExecutor(
+            max_workers=1, thread_name_prefix="repro-canon"
+        )
+    return _ASYNC_EXECUTOR
+
+
+class PendingLevel2:
+    """An in-flight ``host_async`` level-2 batch: the backend submits the
+    drained O(Q) table to the background thread and the loop joins the
+    future at the seal boundary — canonicalisation overlaps the next
+    superstep's expansion instead of sitting on the critical path."""
+
+    def __init__(self, future, n_quick: int):
+        self._future = future
+        self.n_quick = n_quick
+
+    def done(self) -> bool:
+        return self._future.done()
+
+    def result(self):
+        """Block until the batch lands: ``(table, counts (Pc,) int64)``."""
+        return self._future.result()
+
+
+def submit_level2(uniq: np.ndarray, counts_q: np.ndarray) -> PendingLevel2:
+    """Queue one step's host level 2 on the background thread. It gets
+    numpy arrays only: the thread never touches a device tensor."""
+    fut = _async_executor().submit(finish_quick_level2, uniq, counts_q)
+    return PendingLevel2(fut, len(uniq))
+
+
+def _level2_program(u, c, uv, cap: int, nvs: tuple, use_kernel: bool,
+                    method: str):
+    """The device level 2: batched canonical refine of the O(Q) distinct
+    table + weighted quick→canonical re-bin. ``bin_rows`` emits distinct
+    codes in ascending lexicographic order — the same order as the host's
+    ``np.unique`` — so every output is bit-identical to the host path.
+    (The reference also refines the canonical table's orbits here for
+    FSM's domains; vertex mode has none.)"""
+    canon, sigma, _ = canonical_refine.refine_codes(
+        u, uv, nvs, use_kernel=use_kernel,
+    )
+    canon = canon.masked_fill(~uv[:, None], 0)
+    cu, cc, q2c, cn, _ = agg_kernel.bin_rows(
+        canon, uv, cap, weights=c, use_kernel=use_kernel, method=method,
+    )
+    return canon, sigma, cu, cc, q2c, cn
+
+
+def device_level2(u, c, uv, cap: int, n_final: int, quick_codes: np.ndarray,
+                  counts_q: np.ndarray, *, nvs: tuple,
+                  use_kernel: bool = False, method: str = "sort"):
+    """Device-placed level 2 over the finalized device level-1 state.
+
+    ``u``/``c``/``uv`` are the device distinct table (capacity ``cap``),
+    ``n_final`` the already-drained distinct count, ``quick_codes`` /
+    ``counts_q`` the host copies from the level-1 drain (the quick table
+    still crosses — the memo needs it; what this path removes is the host
+    permutation search). The canonical table can never overflow ``cap``
+    (Pc ≤ Q ≤ cap). Vertex mode only: no orbit domains.
+
+    Returns ``(table, counts (Pc,) int64, bytes_to_host)``.
+    """
+    canon_d, sigma_d, cu_d, cc_d, q2c_d, cn_d = _level2_program(
+        u, c, uv, cap, nvs, use_kernel, method
+    )
+    q = int(n_final)
+    pc = int(cn_d)
+    sigma = sigma_d[:q].cpu().numpy().astype(np.int32)
+    q2c = q2c_d[:q].cpu().numpy().astype(np.int32)
+    cu = cu_d[:pc].cpu().numpy().astype(np.int64)
+    cc = cc_d[:pc].cpu().numpy().astype(np.int64)
+    canon_rows = canon_d[:q].cpu().numpy().astype(np.int64)
+    orbits = np.tile(
+        np.arange(pattern_lib.MAX_PATTERN_VERTICES, dtype=np.int32), (pc, 1)
+    )
+    nbytes = (sigma.nbytes + q2c.nbytes + cu.nbytes + cc.nbytes
+              + canon_rows.nbytes + 4)
+    table = pattern_lib.PatternTable(
+        quick_codes=quick_codes,
+        canon_codes=cu,
+        quick_to_canon=q2c,
+        sigma=sigma,
+        canon_n_verts=(cu[:, 0] & 0xF).astype(np.int32),
+        canon_orbits=orbits,
+        n_iso_checks=q,
+    )
+    # warm the host memo with the device results: a later host placement
+    # over the same patterns is then pure cache hits
+    pattern_lib.seed_memo(quick_codes, canon_rows, sigma)
+    return table, cc, nbytes
+
+
+def level2_nvs(app, size: int) -> tuple:
+    """The nv set of the patterns a step of ``size`` may emit: vertex mode
+    (the only mode the port runs) explores fixed-size embeddings, so
+    nv == size."""
+    return (min(int(size), pattern_lib.MAX_PATTERN_VERTICES),)

@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import threading
 from collections import OrderedDict
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -110,6 +110,19 @@ def set_memo_cap(cap: Optional[int]) -> int:
     return old
 
 
+def clear_memo() -> None:
+    """Drop every memoised canonicalisation (cold timing, parity tests)."""
+    with _MEMO_LOCK:
+        _CANON_CACHE.clear()
+
+
+def memo_sizes() -> int:
+    """Canon entries currently memoised. (The reference also counts an
+    orbit memo; only FSM's domains read orbits, and the port keeps none.)"""
+    with _MEMO_LOCK:
+        return len(_CANON_CACHE)
+
+
 def _memo_get_canon(keys: list) -> dict:
     """Snapshot memo hits for ``keys`` (marks them recently used)."""
     out = {}
@@ -143,7 +156,10 @@ class PatternTable(NamedTuple):
     n_iso_checks: int            # == Q: graph-isomorphism invocations (Table 4)
 
 
-def build_pattern_table(unique_quick: np.ndarray) -> PatternTable:
+def build_pattern_table(
+    unique_quick: np.ndarray,
+    canon_fn: Optional[Callable[[np.ndarray], tuple]] = None,
+) -> PatternTable:
     """Level 2 for one step's distinct quick patterns, batched + memoised.
 
     Uncached codes are canonicalised in vectorised per-``n_verts`` batches
@@ -153,6 +169,12 @@ def build_pattern_table(unique_quick: np.ndarray) -> PatternTable:
     per-step invocation count (Table 4 semantics), not the cache-miss
     count. Orbit representatives are the identity: only FSM's min-image
     domains consume orbits, and FSM is not ported yet.
+
+    ``canon_fn`` (optional) replaces the host permutation search for the
+    cache *misses*: it receives the (M, 3) int64 miss codes (mixed nv) and
+    returns ``(canon (M, 3) int64, sigma (M, 8) int32)`` under the exact
+    :func:`canonicalize_one` contract — the hook the device placement
+    (``kernels/canonical_refine``) plugs into. Memoisation still applies.
     """
     q = len(unique_quick)
     canon = np.zeros((q, 3), dtype=np.int64)
@@ -165,14 +187,18 @@ def build_pattern_table(unique_quick: np.ndarray) -> PatternTable:
     misses = [i for i, k in enumerate(keys) if k not in local]
     if misses:
         miss_codes = rows64[misses]
-        fresh = []
-        by_nv: dict[int, list] = {}
-        for j in range(len(misses)):
-            by_nv.setdefault(int(miss_codes[j, 0]) & 0xF, []).append(j)
-        for js in by_nv.values():
-            ck, sg = _canonicalize_batch(miss_codes[js])
-            for row, j in enumerate(js):
-                fresh.append((keys[misses[j]], (ck[row], sg[row])))
+        if canon_fn is not None:
+            ck, sg = canon_fn(miss_codes)
+            fresh = [(keys[i], (ck[j], sg[j])) for j, i in enumerate(misses)]
+        else:
+            fresh = []
+            by_nv: dict[int, list] = {}
+            for j in range(len(misses)):
+                by_nv.setdefault(int(miss_codes[j, 0]) & 0xF, []).append(j)
+            for js in by_nv.values():
+                ck, sg = _canonicalize_batch(miss_codes[js])
+                for row, j in enumerate(js):
+                    fresh.append((keys[misses[j]], (ck[row], sg[row])))
         local.update(fresh)
         _memo_put_canon(fresh)
     for i, k in enumerate(keys):
@@ -189,4 +215,14 @@ def build_pattern_table(unique_quick: np.ndarray) -> PatternTable:
             (len(uniq_canon), 1),
         ),
         n_iso_checks=q,
+    )
+
+
+def seed_memo(quick_codes: np.ndarray, canon: np.ndarray,
+              sigma: np.ndarray) -> None:
+    """Warm the memo with externally computed (device) canonicalisations so
+    later host passes over the same patterns are cache hits."""
+    rows64 = np.ascontiguousarray(quick_codes, dtype=np.int64)
+    _memo_put_canon(
+        (rows64[i].tobytes(), (canon[i], sigma[i])) for i in range(len(rows64))
     )

@@ -15,6 +15,9 @@ from typing import Optional
 
 from repro_torch.kernels.dispatch import resolve_canonical_placement
 
+#: level-1 row-binning algorithms (``RunConfig.aggregate_bin``).
+AGGREGATE_BINS = ("sort", "radix")
+
 
 def next_pow2(x: int) -> int:
     """Smallest power of two >= x (1 for x <= 1): THE capacity-bucket rule.
@@ -55,9 +58,12 @@ class RunConfig:
     #: route the level-1 segment-unique/reduce through the ``seg_unique``
     #: kernel. None -> cost model: on for CUDA tensors.
     aggregate_kernel: Optional[bool] = None
-    #: row-binning algorithm of the level-1 bin; only "sort" is ported.
+    #: row-binning algorithm of the level-1 bin: "sort" (library sort +
+    #: ``seg_unique``) or "radix" (the radix kernels). None -> cost model.
     aggregate_bin: Optional[str] = None
-    #: where level-2 canonicalisation runs; only "host" is ported.
+    #: where level-2 canonicalisation runs: "host", "host_async" (a
+    #: background thread joined at the next seal) or "device" (the
+    #: canonical-refine kernel). None -> cost model.
     canonical_placement: Optional[str] = None
     #: LRU cap of the process-wide quick->canonical memo
     #: (``pattern.set_memo_cap``); None keeps the default.
@@ -88,9 +94,10 @@ class RunConfig:
             "store": self.store != "raw",
             "device_budget_bytes": self.device_budget_bytes is not None,
             "graph_partition": bool(self.graph_partition),
-            "canonical_placement": self.resolve_canonical_placement() != "host",
-            "aggregate_bin": self.resolve_aggregate_bin() != "sort",
         }
+        # unknown values raise ValueError
+        self.resolve_canonical_placement()
+        self.resolve_aggregate_bin()
         bad = [k for k, v in unported.items() if v]
         if bad:
             raise NotImplementedError(
@@ -99,7 +106,11 @@ class RunConfig:
             )
 
     def resolve_aggregate_bin(self) -> str:
-        return "sort" if self.aggregate_bin is None else self.aggregate_bin
+        got = "sort" if self.aggregate_bin is None else self.aggregate_bin
+        if got not in AGGREGATE_BINS:
+            raise ValueError(f"unknown aggregate_bin {got!r} (expected one "
+                             f"of {AGGREGATE_BINS})")
+        return got
 
     def resolve_canonical_placement(self) -> str:
         return resolve_canonical_placement(self.canonical_placement)

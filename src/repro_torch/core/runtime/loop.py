@@ -72,6 +72,29 @@ class SuperstepRuntime:
         # runtime sees the same concrete config the backend built from
         self.config = self.backend.config
 
+    def _join_level2(self, pending, result: MiningResult, st) -> None:
+        """Join an overlapped ``host_async`` level-2 batch (DESIGN.md §15):
+        replace the step's placeholder aggregate and record its patterns.
+        ``t_canon`` here is the *residual* blocking wait, and the join does
+        not count as a host sync (only control-flow reads do)."""
+        t0 = time.perf_counter()
+        with obs.span("canonicalize", placement="host_async",
+                      n_quick=pending.n_quick, step=st.step):
+            table, counts = pending.result()
+        obs.count(st, "t_canon", time.perf_counter() - t0)
+        agg = aggregation.build_step_aggregates(
+            table, counts, counts.copy(), pending.n_quick, st
+        )
+        assert result.aggregates and result.aggregates[-1] is None
+        result.aggregates[-1] = agg
+        # beta/outputs deferred from alpha: async eligibility means no
+        # pattern pruning, so the surviving patterns are the live ones
+        for pc in np.flatnonzero(agg.counts > 0):
+            code = tuple(int(x) for x in agg.canon_codes[pc])
+            result.patterns[code] = (
+                result.patterns.get(code, 0) + int(agg.counts[pc])
+            )
+
     def run(self) -> MiningResult:
         """Mine from scratch (superstep 1 seeds every vertex)."""
         config, app, store, backend = (
@@ -111,11 +134,17 @@ class SuperstepRuntime:
                 # canon_slot means level 1 stayed on the device ----------
                 canon_slot = None
                 agg = None
+                pending = None
                 if app.wants_patterns:
                     with obs.span("aggregate", step=step):
                         agg, canon_slot = backend.aggregate_step(
                             blocks, size, carried, st
                         )
+                        if isinstance(agg, aggregation.PendingLevel2):
+                            # host_async placement: the level-2 batch runs
+                            # on a background thread; the placeholder is
+                            # replaced at the join after the next seal
+                            pending, agg = agg, None
                         result.aggregates.append(agg)
                 carried = None
                 obs.set_stat(st, "t_aggregate", timer.lap())
@@ -172,6 +201,9 @@ class SuperstepRuntime:
                     or b_live == 0
                     or step == config.max_steps
                 ):
+                    if pending is not None:
+                        # no next superstep to overlap with: join now
+                        self._join_level2(pending, result, st)
                     result.stats.steps.append(st)
                     done = True
                 else:
@@ -183,6 +215,11 @@ class SuperstepRuntime:
                     store.seal(size + 1)
                     st.n_children = store.n_rows
                     obs.count(st, "t_storage", timer.lap())
+                    if pending is not None:
+                        # join the overlapped level-2 batch at the seal
+                        # boundary: only the residual wait lands on the
+                        # critical path
+                        self._join_level2(pending, result, st)
                     backend.end_step(store, st)
                     result.stats.steps.append(st)
             observer.step_done(st)

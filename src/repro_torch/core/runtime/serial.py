@@ -13,7 +13,10 @@ Pattern aggregation is device-resident by default (DESIGN.md §10): chunk
 programs emit pre-binned level-1 *partials* that fold across the
 stacked-drain window (:class:`repro_torch.core.aggregation.DeviceLevel1`),
 and only O(Q) bytes cross to the host; ``device_aggregate=False`` keeps the
-host reference path (``aggregation.aggregate_rows``).
+host reference path (``aggregation.aggregate_rows``). Level 2 runs where
+``canonical_placement`` puts it (DESIGN.md §15): on the host, on a
+background thread joined at the next seal (``host_async``), or on the
+device through the canonical-refine kernel (``device``).
 """
 from __future__ import annotations
 
@@ -29,6 +32,7 @@ from repro_torch.core.runtime import programs
 from repro_torch.core.runtime.backend import ExecutionBackend
 from repro_torch.core.runtime.config import next_pow2
 from repro_torch.core.store import FrontierStore, make_store
+from repro_torch.kernels import canonical_refine
 
 #: chunk programs in flight between drains: bounds how many capacity-
 #: padded output buffers are device-resident at once while keeping host
@@ -59,6 +63,14 @@ class SerialBackend(ExecutionBackend):
             and app.wants_patterns
             and type(app).aggregation_filter is MiningApp.aggregation_filter
         )
+        # level-2 placement (DESIGN.md §15): host_async needs a deferrable
+        # table (the loop joins it at the seal) — pruning apps run the
+        # synchronous host placement, bit-identical either way
+        self._canon_placement = config.resolve_canonical_placement()
+        if self._canon_placement == "host_async" and not (
+            self._device_agg and aggregation.async_level2_ok(app)
+        ):
+            self._canon_placement = "host"
         if config.canonical_memo_cap is not None:
             pattern_lib.set_memo_cap(config.canonical_memo_cap)
         #: cross-batch level-1 merge capacity, grown pow2 on observed
@@ -130,9 +142,17 @@ class SerialBackend(ExecutionBackend):
         return codes, lv
 
     def aggregate(self, codes, lv, st):
-        # host-resident level 1 (reference path); ``lv`` feeds only the
-        # domain apps, which are not ported
-        agg, canon_slot = aggregation.aggregate_rows(codes)
+        # host-resident level 1 (reference path; ``lv`` feeds only the
+        # domain apps, which are not ported): placement "device" still
+        # routes the miss batch through the refine kernel
+        canon_fn = (
+            canonical_refine.make_canon_fn(
+                use_kernel=self._agg_kernel, device=self._device
+            )
+            if self._canon_placement == "device"
+            else None
+        )
+        agg, canon_slot = aggregation.aggregate_rows(codes, canon_fn=canon_fn)
         obs.set_stat(st, "n_quick_patterns", agg.n_quick)
         obs.set_stat(st, "n_canonical_patterns", agg.n_canonical)
         obs.set_stat(st, "n_iso_checks", agg.n_iso_checks)
@@ -167,9 +187,27 @@ class SerialBackend(ExecutionBackend):
         uniq, counts_q, nbytes = res
         self._run_qcap = max(self._run_qcap, next_pow2(max(lvl1.observed_n, 1)))
         obs.count(st, "bytes_to_host", nbytes)
+        placement = self._canon_placement
+        if placement == "host_async":
+            # overlap: the loop joins the pending batch at the seal
+            # boundary, after the next expansion has been enqueued;
+            # async_level2_ok guarantees no pruning reads the table
+            pending = aggregation.submit_level2(uniq, counts_q)
+            self._lvl1, self._table = lvl1, None
+            self._agg_blocks, self._agg_size = blocks, size
+            return pending, None
         t0 = time.perf_counter()
-        with obs.span("canonicalize", placement="host", n_quick=len(uniq)):
-            table, counts = aggregation.finish_quick_level2(uniq, counts_q)
+        with obs.span("canonicalize", placement=placement, n_quick=len(uniq)):
+            if placement == "device" and lvl1._final is not None and len(uniq):
+                u, c, uv, fcap, _ = lvl1._final
+                table, counts, nbytes2 = aggregation.device_level2(
+                    u, c, uv, fcap, len(uniq), uniq, counts_q,
+                    nvs=aggregation.level2_nvs(app, size),
+                    use_kernel=self._agg_kernel, method=self._agg_bin,
+                )
+                obs.count(st, "bytes_to_host", nbytes2)
+            else:
+                table, counts = aggregation.finish_quick_level2(uniq, counts_q)
         obs.count(st, "t_canon", time.perf_counter() - t0)
         agg = aggregation.build_step_aggregates(
             table, counts, counts.copy(), len(uniq), st

@@ -15,8 +15,10 @@ The row sort stays a library sort (``torch.sort``; the JAX package left it
 to XLA's sort outside Pallas). What the hand-written kernel
 (:func:`seg_unique_cuda`, ``csrc/seg_unique.cu``) computes is everything
 after the sort: segment-boundary prefix sum, first-occurrence scatter,
-per-slot counts and per-row slots. Only the ``"sort"`` bin is ported; the
-radix bin waits (ROADMAP.md).
+per-slot counts and per-row slots. The ``"radix"`` bin
+(:mod:`repro_torch.kernels.radix_bin`) replaces the library sort with the
+hand-written radix kernels and shares the segment half
+(:func:`bin_sorted`).
 """
 from __future__ import annotations
 
@@ -132,12 +134,21 @@ def bin_rows(codes, valid, cap: int, weights=None, *, use_kernel: bool = False,
     ``q``; ``inv`` maps each input row to its slot (-1 invalid, *unclamped*
     on overflow); ``n`` is the unclamped distinct total — ``n > cap`` means
     the caller must re-bin at ``next_pow2(n)``. Precondition: every code
-    word is non-negative and < 2^32."""
+    word is non-negative and < 2^32.
+
+    ``method`` selects the partition: ``"sort"`` is this module's sort +
+    segment-unique route; ``"radix"`` routes to
+    :mod:`repro_torch.kernels.radix_bin` — same contract, identical
+    outputs."""
+    if method == "radix":
+        # late import: radix_bin's slow path calls back into this module
+        from repro_torch.kernels import radix_bin
+
+        return radix_bin.bin_rows_radix(codes, valid, cap, weights,
+                                        use_kernel=use_kernel)
     if method != "sort":
-        raise NotImplementedError(
-            f"aggregate_bin={method!r}: only the 'sort' bin is ported; the "
-            "radix bin is queued in ROADMAP.md"
-        )
+        raise ValueError(f"unknown aggregate_bin {method!r} (expected "
+                         "'sort' or 'radix')")
     b = codes.shape[0]
     dev = codes.device
     if b == 0:
@@ -151,6 +162,17 @@ def bin_rows(codes, valid, cap: int, weights=None, *, use_kernel: bool = False,
         # only while a slot's count (<= B) fits
         weights = torch.ones((b,), dtype=torch.int64, device=dev)
     sc, sv, order = sort_codes(codes, valid)
+    return bin_sorted(sc, sv, order, cap, weights, use_kernel=use_kernel)
+
+
+def bin_sorted(sc, sv, order, cap: int, weights=None, *,
+               use_kernel: bool = False):
+    """The segment half of :func:`bin_rows`, over rows already sorted
+    (``sc``/``sv`` = codes/valid in sort order, invalid rows last;
+    ``order`` the sort permutation): segment starts, counts and per-row
+    slots through the ``seg_unique`` kernel or its plain version."""
+    b = sc.shape[0]
+    dev = sc.device
     prev_diff = torch.cat([
         torch.ones((1,), dtype=torch.bool, device=dev),
         (sc[1:] != sc[:-1]).any(dim=1),

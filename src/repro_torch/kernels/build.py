@@ -35,6 +35,9 @@ LAUNCHES: Dict[str, int] = {
     "expand_canonical": 0,
     "stream_compact": 0,
     "seg_unique": 0,
+    "radix_hist": 0,
+    "radix_scatter": 0,
+    "canonical_refine": 0,
 }
 
 _P = ctypes.c_void_p
@@ -48,6 +51,9 @@ _SIGNATURES = {
     "repro_stream_compact": [_P, _L, _I, _P, _P, _P, _P],
     "repro_seg_unique": [_P, _P, _L, _I, _P, _P, _P, _P, _P, _P],
     "repro_scan_tile": [],
+    "repro_radix_hist": [_P, _P, _P, _L, _I, _I, _I, _P, _P, _P, _P],
+    "repro_radix_scatter": [_P, _P, _P, _L, _I, _I, _P, _P, _P, _P, _P],
+    "repro_canonical_refine": [_P, _P, _L, _P, _P, _I, _I, _P, _P, _P, _P],
 }
 
 _LIB: Optional[ctypes.CDLL] = None

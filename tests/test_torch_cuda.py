@@ -14,7 +14,9 @@ import torch
 from repro_torch.core import graph as TG
 from repro_torch.core import RunConfig, run
 from repro_torch.core.apps import CliquesApp, MotifsApp
-from repro_torch.kernels import aggregate, build, compact
+from repro_torch.core import canon_math
+from repro_torch.kernels import aggregate, build, canonical_refine, compact
+from repro_torch.kernels import radix_bin
 from repro_torch.kernels.canonical_check.canonical_check import (
     canonical_check_cuda,
     canonical_check_ref,
@@ -98,7 +100,8 @@ def test_kernels_match_plain_versions(cuda_device):
         for a, b in zip(out, ref):
             assert torch.equal(a.cpu(), b)
     torch.cuda.synchronize()
-    for name in build.LAUNCHES:
+    for name in ("canonical_check", "expand_canonical", "stream_compact",
+                 "seg_unique"):
         assert build.LAUNCHES[name] > before[name], name
 
 
@@ -118,3 +121,79 @@ def test_card_run_equals_cpu_run(cuda_device, app, fused):
             b.n_quick_patterns, b.bytes_to_host)
     for size, emb in cpu.embeddings.items():
         np.testing.assert_array_equal(gpu.embeddings[size], emb)
+
+
+def _refine_codes(rng, nv, n, n_labels=4):
+    out = []
+    for _ in range(n):
+        upper = np.triu(rng.random((nv, nv)) < 0.5, 1)
+        out.append(canon_math.encode(nv, upper | upper.T,
+                                     rng.integers(0, n_labels, nv)))
+    return np.array(out, dtype=np.int64)
+
+
+def test_radix_and_refine_kernels_match_plain_versions(cuda_device):
+    dev = cuda_device
+    rng = np.random.default_rng(1)
+    before = dict(build.LAUNCHES)
+    codes = _codes(rng, 70_000).to(dev)
+    codes[:, 2] = 0                   # constant word: its passes are skipped
+    valid = torch.rand(70_000, device=dev) < 0.9
+    for b in (0, 1, 4096, 70_000):
+        got = radix_bin.radix_sort_codes(codes[:b], valid[:b])
+        want = radix_bin.radix_sort_codes_ref(codes[:b], valid[:b])
+        for a, w in zip(got, want):
+            assert torch.equal(a, w)
+    # one varying pass, piece by piece, on a shuffled order
+    order = torch.randperm(70_000, device=dev).to(torch.int32)
+    vary = torch.zeros(4, dtype=torch.int32, device=dev)
+    radix_bin.radix_hist_cuda(codes, valid, order, 2, 0, vary, True)
+    assert torch.equal(vary, radix_bin.digit_vary_ref(codes, valid))
+    hist, totals = radix_bin.radix_hist_cuda(codes, valid, order, 1, 8, vary,
+                                             False)
+    ref_h, ref_t = radix_bin.radix_hist_ref(codes, valid, order, 1, 8,
+                                            radix_bin.RADIX_TILE)
+    assert torch.equal(hist, ref_h) and torch.equal(totals, ref_t)
+    out = radix_bin.radix_scatter_cuda(codes, valid, order, 1, 8, vary, hist,
+                                       totals)
+    assert torch.equal(out, radix_bin.radix_scatter_ref(codes, valid, order,
+                                                        1, 8))
+    for use_kernel in (False, True):
+        got = aggregate.bin_rows(codes, valid, 1 << 12, use_kernel=use_kernel,
+                                 method="radix")
+        want = aggregate.bin_rows(codes.cpu(), valid.cpu(), 1 << 12)
+        for a, w in zip(got, want):
+            assert torch.equal(a.cpu(), w)
+
+    mixed = np.concatenate([_refine_codes(rng, nv, 300 if nv < 8 else 40)
+                            for nv in range(2, 9)]
+                           + [np.array([[1, 5, 0], [0, 0, 0]], np.int64)])
+    codes = torch.from_numpy(mixed).to(dev)
+    valid = torch.rand(len(mixed), device=dev) < 0.95
+    for nvs in ((3,), (2, 3, 4, 5, 6, 7, 8)):
+        for orbits in (False, True):
+            got = canonical_refine.refine_cuda(codes, valid, nvs,
+                                               with_orbits=orbits)
+            want = canonical_refine.refine_codes_ref(codes, valid, nvs,
+                                                     with_orbits=orbits)
+            for a, w in zip(got, want):
+                assert torch.equal(a, w)
+    torch.cuda.synchronize()
+    for name in ("radix_hist", "radix_scatter", "canonical_refine"):
+        assert build.LAUNCHES[name] > before[name], name
+
+
+@pytest.mark.parametrize("placement", ["device", "host_async"])
+def test_force_device_card_run_equals_cpu_run(cuda_device, placement):
+    g = TG.mico_like(0.003)
+    cfg = RunConfig(cost_model="force_device", canonical_placement=placement,
+                    chunk_size=256, initial_capacity=64)
+    gpu = run(g, MotifsApp(max_size=3), cfg, device=cuda_device)
+    cpu = run(g, MotifsApp(max_size=3), cfg, device="cpu")
+    assert gpu.patterns == cpu.patterns
+    assert gpu.stats.cost_model["aggregate_kernel"] is True
+    for a, b in zip(gpu.stats.steps, cpu.stats.steps):
+        assert (a.n_children, a.n_quick_patterns, a.n_canonical_patterns,
+                a.n_host_syncs, a.bytes_to_host) == (
+            b.n_children, b.n_quick_patterns, b.n_canonical_patterns,
+            b.n_host_syncs, b.bytes_to_host)

@@ -75,11 +75,24 @@ def test_entry_points_need_a_card_unless_cpu_is_asked(monkeypatch):
 @pytest.mark.parametrize("knob", [
     dict(store="odag"), dict(device_budget_bytes=1 << 20),
     dict(checkpoint_dir="ckpt"), dict(graph_partition=2),
-    dict(canonical_placement="device"), dict(canonical_placement="host_async"),
-    dict(aggregate_bin="radix"), dict(cost_model="force_device"),
+    dict(log_every=1), dict(store="spill"),
     dict(trace=True), dict(faults=object()),
 ])
 def test_unported_paths_raise(knob):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         run(TG.triangle_plus_tail(), MotifsApp(max_size=3), RunConfig(**knob),
             device="cpu")
+
+
+@pytest.mark.parametrize("knob", [
+    dict(canonical_placement="device"), dict(canonical_placement="host_async"),
+    dict(aggregate_bin="radix"), dict(cost_model="force_device"),
+])
+def test_level2_placements_and_radix_bin_run(knob):
+    """The knobs of the radix bin and the level-2 placements run and give
+    the default run's patterns (parity with the JAX package:
+    ``test_torch_level2.py``)."""
+    g = TG.triangle_plus_tail()
+    want = run(g, MotifsApp(max_size=3), device="cpu").patterns
+    res = run(g, MotifsApp(max_size=3), RunConfig(**knob), device="cpu")
+    assert res.patterns == want

@@ -1,9 +1,15 @@
-"""Shared helpers of the port's run-level parity tests
-(``test_torch_engine.py``, ``test_torch_pipeline.py``): one seeded graph
-for both packages, and the whole-run comparison (tolerance 0)."""
+"""Shared helpers of the port's parity tests (``test_torch_*.py``): one
+seeded graph for both packages, the whole-run comparison and the
+array-tuple comparison (tolerance 0).
+
+Importing it pins PyTorch to one intra-op thread for the test process: the
+suite runs several worker processes at once, and PyTorch's default (one
+thread per core in every worker) oversubscribes the CPU against the JAX
+tests that run beside it."""
 import dataclasses
 
 import numpy as np
+import torch
 
 from repro.core import graph as JG
 from repro.core.stats import StepStats as JStepStats
@@ -15,6 +21,8 @@ COUNTERS = [f.name for f in dataclasses.fields(JStepStats)
 #: the port on the CPU with every kernel knob on: each wrapper takes its
 #: plain version
 KERNELS_ON = dict(use_pallas=True, compact_kernel=True, aggregate_kernel=True)
+
+torch.set_num_threads(1)
 
 
 def graph_pair(make):
@@ -40,3 +48,11 @@ def assert_same_run(jres, tres):
     for ja, ta in zip(jres.aggregates, tres.aggregates):
         for a, b in zip(ta, ja):
             np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+
+def assert_same_arrays(port, ref):
+    """Each tensor of ``port`` equals the array at the same place of
+    ``ref`` (a JAX or numpy array), values and shape."""
+    assert len(port) == len(ref)
+    for a, b in zip(port, ref):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
