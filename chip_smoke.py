@@ -12,18 +12,23 @@ Phases, in order; any failure exits non-zero and prints no result:
      booleans: exact equality), and time kernel, plain version and, where
      one exists, the one PyTorch call that computes the same function;
      the canonical refine also on seeded codes of every nv from 2 to 8,
-     with and without orbits; then one chunk program per route under
-     sync debug mode "error";
+     with and without orbits; the halo gather and the tile check on the
+     partitioned layout (``to_partitioned(mico_like(0.1), 4)``, the halo
+     of the first size-2 chunk); then one chunk program per route, whole
+     graph and partitioned, under sync debug mode "error";
   4. the card port against the CPU port on ``mico_like(0.005)``: motifs and
      cliques with the default config, motifs under
      ``cost_model="force_device"`` and under
      ``canonical_placement="host_async"``, and size-4 motifs under
-     ``force_device`` on ``mico_like(0.001)``: identical patterns,
-     per-size embedding counts and per-step counters;
+     ``force_device`` on ``mico_like(0.001)``, and motifs and cliques
+     under ``graph_partition=4``: identical patterns, per-size embedding
+     counts and per-step counters;
   5. the main path through ``repro_torch.core.run`` on ``mico_like(0.1)``
      (MiCo/10): motifs unfused and fused and cliques with the default
      static config, then motifs under ``cost_model="force_device"`` (the
-     radix bin and level 2 on the device); the launch counts are zeroed
+     radix bin and level 2 on the device), then motifs and cliques over
+     the partitioned layout (``graph_partition=4``), which must equal the
+     whole-graph runs; the launch counts are zeroed
      just before each run and read just after, and every kernel must have
      launched. The refine row is then timed on the distinct table that
      level 2 of the last run's step 3 refined.
@@ -57,6 +62,7 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 CHUNK = 4096                   # RunConfig.chunk_size default
 REFINE_ROWS = 3000             # seeded quick codes per nv (2/3 of it at nv 8)
 AGG_QCAP = 4096                # RunConfig.agg_qcap default
+PARTS = 4                      # graph shards of the partitioned runs
 
 
 class SmokeFailure(Exception):
@@ -336,6 +342,111 @@ def radix_checks(torch, codes, valid, reps, rows):
     return info
 
 
+def library_gather(torch, table, rows, fill):
+    """One library gather of the same function: ``index_select`` of the
+    clamped rows, then the fill mask."""
+    out = torch.index_select(table, 0, rows.clamp(0, table.shape[0] - 1))
+    ok = (rows >= 0) & (rows < table.shape[0])
+    return out.masked_fill_(~ok[:, None], fill)
+
+
+def partition_checks(torch, np, G, g, reps=15):
+    """Phase 3, partitioned layout: the halo gather and the tile check
+    against their plain versions at the shapes the first size-2 chunk of
+    the partitioned main path gives them. Returns the two kernel rows and
+    the partitioned graph (for the sync check)."""
+    from repro_torch.core import explore
+    from repro_torch.kernels import gather
+    from repro_torch.kernels.canonical_check.canonical_check import (
+        canonical_check_tiles_cuda, canonical_check_tiles_ref, expand_masks,
+    )
+
+    pg = G.to_partitioned(g, PARTS)
+    dev = pg.device
+    members = torch.from_numpy(g.edges[:CHUNK].astype(np.int32)).to(dev)
+    n_valid = torch.full((CHUNK,), 2, dtype=torch.int32, device=dev)
+    c, k, d = members.shape[0], members.shape[1], pg.max_degree
+    w = pg.adj_sh.shape[2]
+    cap = explore.halo_cap(members.shape, "vertex", pg.n)
+    verts = explore.halo_vertices(pg, members, n_valid, "vertex")
+    uniq, count = gather.halo_unique(verts, pg.n, cap, use_kernel=True)
+    want = gather.halo_unique(verts, pg.n, cap, use_kernel=False)
+    torch.cuda.synchronize()
+    need(max_abs_err(torch, (uniq, count), want) == 0,
+         "halo_unique through the compaction kernel differs from its plain "
+         "version")
+    fi, ok = pg.flat_index(uniq)
+    fi = torch.where(ok, fi, -1)
+    n_hit = int(count)
+    log(f"  partitioned: bounds {pg.part_offsets.tolist()}, "
+        f"{pg.tile_rows} rows per shard, halo {n_hit} of U={cap}")
+    info = {"part_offsets": pg.part_offsets.tolist(),
+            "tile_rows": pg.tile_rows, "halo": n_hit, "halo_cap": cap}
+
+    # -- gather_rows: the neighbour and adjacency tiles of the chunk --------
+    rows, gathers = [], {}
+    for name, table, fill in (
+            ("nbr", pg.nbr_sh.reshape(-1, d), -1),
+            ("adj", pg.adj_sh.reshape(-1, w), 0)):
+        got = gather.gather_rows_cuda(table, fi, fill)
+        want = gather.gather_rows_ref(table, fi, fill)
+        torch.cuda.synchronize()
+        err = max_abs_err(torch, (got,), (want,))
+        need(err == 0, f"gather_rows ({name}) differs from its plain "
+             f"version ({err})")
+        del got, want
+        ms = time_ms(torch, lambda: gather.gather_rows_cuda(
+            table, fi, fill), reps)
+        plain = time_ms(torch, lambda: gather.gather_rows_ref(
+            table, fi, fill), 5)
+        lib_ms = time_ms(torch, lambda: library_gather(
+            torch, table, fi, fill), 5)
+        r = table.shape[1]
+        nbytes = cap * 4 + n_hit * r * 4 + cap * r * 4
+        log(f"  gather_rows, {name} tile ({cap} x {r}):")
+        gathers[name] = kernel_row(
+            "gather_rows", "src/repro_torch/kernels/csrc/gather_rows.cu",
+            "src/repro/kernels/gather.py:63", err, ms, plain, nbytes, lib_ms)
+    rows.append(gathers["nbr"])
+    info["gather_rows_adj"] = gathers["adj"]
+
+    # -- canonical_check_tiles: the chunk's flat candidate batch -----------
+    view = explore.build_tile_view(pg, members, n_valid, "vertex",
+                                   use_pallas=True, compact_kernel=True)
+    plain_view = explore.build_tile_view(pg, members, n_valid, "vertex")
+    torch.cuda.synchronize()
+    need(max_abs_err(torch, tuple(view), tuple(plain_view)) == 0,
+         "the tile view built through the kernels differs from the plain one")
+    del plain_view
+    mrow, row_ok = explore.member_tile_rows(view, members, n_valid)
+    cand, _ = expand_masks(members, n_valid, view.nbr_t, view.adj_t,
+                           rows=mrow, row_ok=row_ok)
+    flat_rows = torch.arange(c, dtype=torch.int32,
+                             device=dev).repeat_interleave(k * d)
+    args = (members[flat_rows], mrow[flat_rows], n_valid[flat_rows],
+            cand.reshape(-1), view.adj_t)
+    b = args[3].shape[0]
+    got = (canonical_check_tiles_cuda(*args),)
+    want = (canonical_check_tiles_ref(*args),)
+    torch.cuda.synchronize()
+    err = max_abs_err(torch, got, want)
+    need(err == 0, f"canonical_check_tiles differs from its plain version "
+         f"({err})")
+    del got, want
+    ms = time_ms(torch, lambda: canonical_check_tiles_cuda(*args), reps)
+    plain = time_ms(torch, lambda: canonical_check_tiles_ref(*args), 3, 1)
+    nbytes = b * (2 * k * 4 + 4 + 4 + 1) + view.adj_t.numel() * 4
+    log(f"  canonical_check_tiles: {b} candidates, tile "
+        f"{tuple(view.adj_t.shape)}")
+    rows.append(kernel_row(
+        "canonical_check_tiles",
+        "src/repro_torch/kernels/csrc/canonical_check_tiles.cu",
+        "src/repro/kernels/canonical_check/canonical_check.py:155",
+        err, ms, plain, nbytes, None))
+    info["tiles_batch"] = b
+    return rows, info, pg
+
+
 def refine_ops(nv: int) -> int:
     """int32 operations of one (row, permutation) of the refine: 4 per
     adjacency bit, 4 per label, 3 for the compare."""
@@ -438,25 +549,29 @@ def refine_main_table(torch, table, reps=15):
                  "seed_memo_s": seed_s}
 
 
-def chunk_program_is_sync_free(torch, dg, members, n_valid):
+def chunk_program_is_sync_free(torch, dg, pg, members, n_valid):
     """One chunk program per route under sync debug mode "error": any
     hidden host sync in expansion, filter, compaction or the partial bin
     (sort bin; radix bin through its kernels and through the fused-key
-    route) raises."""
+    route) raises; on the partitioned layout ``pg`` also in the halo
+    gather, the tile view's rank translation and the tile check."""
     from repro_torch.core import explore
     from repro_torch.core.apps import CliquesApp, MotifsApp
 
-    motifs = MotifsApp(max_size=3)
-    for app, fused, agg_bin, agg_kernel in (
-            (motifs, False, "sort", True), (motifs, True, "sort", True),
-            (CliquesApp(max_size=4), False, "sort", True),
-            (motifs, False, "radix", True), (motifs, True, "radix", True),
-            (motifs, False, "radix", False)):
+    motifs, cliques = MotifsApp(max_size=3), CliquesApp(max_size=4)
+    for graph, app, fused, agg_bin, agg_kernel in (
+            (dg, motifs, False, "sort", True), (dg, motifs, True, "sort", True),
+            (dg, cliques, False, "sort", True),
+            (dg, motifs, False, "radix", True),
+            (dg, motifs, True, "radix", True),
+            (dg, motifs, False, "radix", False),
+            (pg, motifs, False, "sort", True), (pg, motifs, True, "sort", True),
+            (pg, cliques, False, "sort", True)):
         torch.cuda.synchronize()
         torch.cuda.set_sync_debug_mode("error")
         try:
             explore.fused_chunk_step(
-                dg, members, n_valid, 1 << 22, mode="vertex", app=app,
+                graph, members, n_valid, 1 << 22, mode="vertex", app=app,
                 with_aggregates=app.wants_patterns, agg_qcap=AGG_QCAP,
                 with_local_verts=False, use_pallas=True, fused=fused,
                 compact_kernel=True, aggregate_kernel=agg_kernel,
@@ -465,6 +580,35 @@ def chunk_program_is_sync_free(torch, dg, members, n_valid):
         finally:
             torch.cuda.set_sync_debug_mode("default")
         torch.cuda.synchronize()
+
+
+def chunk_program_times(torch, dg, pg, members, n_valid, reps=5):
+    """Milliseconds of one chunk program (the first size-2 chunk, default
+    knobs: kernels on, unfused, sort bin) on the whole graph and on the
+    partitioned layout, for motifs and cliques, and of the partitioned
+    program's tile-gather stage alone: where the partitioned path's extra
+    expansion time goes."""
+    from repro_torch.core import explore
+    from repro_torch.core.apps import CliquesApp, MotifsApp
+
+    def program(graph, app):
+        return lambda: explore.fused_chunk_step(
+            graph, members, n_valid, 1 << 23, mode="vertex", app=app,
+            with_aggregates=app.wants_patterns, agg_qcap=AGG_QCAP,
+            with_local_verts=False, use_pallas=True, compact_kernel=True,
+            aggregate_kernel=True)
+
+    out = {}
+    for app in (MotifsApp(max_size=3), CliquesApp(max_size=4)):
+        for layout, graph in (("whole", dg), ("partitioned", pg)):
+            out[f"{type(app).__name__}_{layout}"] = time_ms(
+                torch, program(graph, app), reps)
+    out["build_tile_view"] = time_ms(torch, lambda: explore.build_tile_view(
+        pg, members, n_valid, "vertex", use_pallas=True,
+        compact_kernel=True), reps)
+    log("  one chunk program, ms: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in out.items()))
+    return out
 
 
 INT_FIELDS = ("step", "size", "n_frontier", "n_generated", "n_canonical",
@@ -575,15 +719,38 @@ def main_path(torch, np, run, RunConfig, G, build, apps):
             log(f"    step {s['step']}: frontier {s['frontier']} children "
                 f"{s['children']} chunks {s['n_chunks']} syncs "
                 f"{s['n_host_syncs']} quick {s['quick_patterns']} canonical "
-                f"{s['canonical_patterns']}")
+                f"{s['canonical_patterns']} t_expand {s['t_expand']:.4f} s")
 
-    mot, fused, cli, fdev = (
+    mot, fused, cli, fdev, pmot, pcli = (
         results["motifs_unfused"], results["motifs_fused"],
-        results["cliques"], results["motifs_force_device"])
+        results["cliques"], results["motifs_force_device"],
+        results["motifs_partitioned"], results["cliques_partitioned"])
     need(mot.patterns == fused.patterns, "fused and unfused motifs differ")
+    # the partitioned layout: the same results and the same host syncs as
+    # the whole-graph runs, through the halo gather and the tile check
+    need(pmot.patterns == mot.patterns,
+         "partitioned motifs differ from the whole-graph motifs")
+    need(sorted(pcli.embeddings) == sorted(cli.embeddings),
+         "partitioned cliques have other sizes")
+    for size, emb in cli.embeddings.items():
+        pe = pcli.embeddings[size]
+        need(pe.shape == emb.shape and np.array_equal(
+            np.unique(pe, axis=0), np.unique(emb, axis=0)),
+            f"partitioned size-{size} cliques differ as sets")
+    for whole, part, label in ((mot, pmot, "motifs"), (cli, pcli, "cliques")):
+        need([(s.n_chunks, s.n_host_syncs, s.n_children)
+              for s in whole.stats.steps]
+             == [(s.n_chunks, s.n_host_syncs, s.n_children)
+                 for s in part.stats.steps],
+             f"partitioned {label}: chunks, syncs or children per step differ")
+    for rec in runs:
+        if rec["run"].endswith("_partitioned"):
+            for name in ("gather_rows", "canonical_check_tiles"):
+                need(rec["launches"][name] > 0,
+                     f"{name} never launched in {rec['run']}")
     need(fdev.patterns == mot.patterns,
          "force_device motifs differ from the host-placed motifs")
-    fd = runs[-1]
+    fd = next(r for r in runs if r["run"] == "motifs_force_device")
     need(fd["cost_model"]["aggregate_bin"] == "radix"
          and fd["cost_model"]["canonical_placement"] == "device",
          f"force_device did not pick the radix bin and device level 2: "
@@ -659,11 +826,17 @@ def main(argv=None) -> int:
     g = G.mico_like(0.1)
     dg = G.to_device(g)
     kernels, extra = kernel_checks(torch, np, dg, g)
+    rows, extra["partitioned"], pg = partition_checks(torch, np, G, g)
+    kernels += rows
+    build.reset_launches()
     members = torch.from_numpy(g.edges[:CHUNK].astype(np.int32)).to(dg.device)
     n_valid = torch.full((CHUNK,), 2, dtype=torch.int32, device=dg.device)
-    chunk_program_is_sync_free(torch, dg, members, n_valid)
-    log("  chunk programs ran under sync debug mode 'error': no host sync")
-    del dg, members, n_valid
+    chunk_program_is_sync_free(torch, dg, pg, members, n_valid)
+    log("  chunk programs (whole graph and partitioned) ran under sync "
+        "debug mode 'error': no host sync")
+    extra["chunk_program_ms"] = chunk_program_times(torch, dg, pg, members,
+                                                    n_valid)
+    del dg, pg, members, n_valid
     torch.cuda.empty_cache()
 
     # ---- 4. card port vs CPU port ----------------------------------------
@@ -677,6 +850,10 @@ def main(argv=None) -> int:
          RunConfig(canonical_placement="host_async")),
         ("motifs4_force_device", 0.001, MotifsApp(max_size=4),
          RunConfig(cost_model="force_device")),
+        ("motifs_partitioned", 0.005, MotifsApp(max_size=3),
+         RunConfig(graph_partition=PARTS)),
+        ("cliques_partitioned", 0.005, CliquesApp(max_size=4),
+         RunConfig(graph_partition=PARTS)),
     ])
 
     # ---- 5. the main path --------------------------------------------------
@@ -687,6 +864,10 @@ def main(argv=None) -> int:
         ("cliques", CliquesApp(max_size=4), RunConfig()),
         ("motifs_force_device", MotifsApp(max_size=3),
          RunConfig(cost_model="force_device")),
+        ("motifs_partitioned", MotifsApp(max_size=3),
+         RunConfig(graph_partition=PARTS)),
+        ("cliques_partitioned", CliquesApp(max_size=4),
+         RunConfig(graph_partition=PARTS)),
     ])
     row, extra["level2_step3"] = refine_main_table(torch, level2_table)
     kernels.append(row)

@@ -2,7 +2,9 @@
 (port of ``repro.core``; the JAX package stays the reference)."""
 from repro_torch.core.api import MiningApp
 from repro_torch.core.engine import EngineConfig, MiningResult, run
-from repro_torch.core.graph import DeviceGraph, Graph, to_device
+from repro_torch.core.graph import (
+    DeviceGraph, Graph, PartitionedGraph, to_device, to_partitioned,
+)
 from repro_torch.core.runtime import RunConfig, SuperstepRuntime
 
 __all__ = [
@@ -14,5 +16,7 @@ __all__ = [
     "run",
     "DeviceGraph",
     "Graph",
+    "PartitionedGraph",
     "to_device",
+    "to_partitioned",
 ]

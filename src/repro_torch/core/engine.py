@@ -6,7 +6,7 @@ import dataclasses
 from typing import Optional
 
 from repro_torch.core.api import MiningApp
-from repro_torch.core.graph import DeviceGraph, Graph
+from repro_torch.core.graph import DeviceGraph, Graph, PartitionedGraph
 from repro_torch.core.runtime import (
     MiningResult,
     RunConfig,
@@ -24,7 +24,7 @@ class EngineConfig(RunConfig):
 
 
 def run(
-    graph: Graph | DeviceGraph,
+    graph: Graph | DeviceGraph | PartitionedGraph,
     app: MiningApp,
     config: Optional[RunConfig] = None,
     device=None,
@@ -32,5 +32,7 @@ def run(
     """Mine ``graph`` with ``app`` on the serial backend. A host ``Graph``
     is uploaded to ``device`` — the current CUDA device when None, raising
     when there is none; pass ``device="cpu"`` for the CPU. A
-    ``DeviceGraph`` runs where its tensors are."""
+    ``DeviceGraph`` or ``PartitionedGraph`` runs where its tensors are;
+    ``config.graph_partition`` lays a ``Graph`` or ``DeviceGraph`` out
+    partitioned first."""
     return SuperstepRuntime(graph, app, config, SerialBackend(), device).run()

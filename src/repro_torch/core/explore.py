@@ -11,8 +11,10 @@ bounded.
 
 :func:`fused_chunk_step` is the single device pass of the fused superstep
 pipeline (DESIGN.md §8): expansion + canonicality + app filter + stream
-compaction + the children's quick-pattern codes. Edge mode and the
-partitioned graph's tile view are not ported yet (ROADMAP.md).
+compaction + the children's quick-pattern codes. On a
+:class:`PartitionedGraph` it opens with the tile-gather stage
+(:func:`build_tile_view`, DESIGN.md §11). Edge mode is not ported yet
+(ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -20,12 +22,154 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.core import canonical, pattern as pattern_lib
-from repro_torch.core.graph import DeviceGraph
+from repro_torch.core import bitset, canonical, pattern as pattern_lib
+from repro_torch.core.graph import DeviceGraph, PartitionedGraph
 from repro_torch.kernels import aggregate as aggregate_kernel_lib
 from repro_torch.kernels import compact as compact_kernel_lib
+from repro_torch.kernels import gather as gather_kernel_lib
 from repro_torch.kernels.canonical_check.canonical_check import expand_masks
 from repro_torch.kernels.canonical_check import ops as cc_ops
+
+
+def _require_vertex(mode: str) -> None:
+    if mode != "vertex":
+        raise NotImplementedError(
+            "edge-mode exploration comes with FSM; see ROADMAP.md"
+        )
+
+
+class TileView(NamedTuple):
+    """One chunk's gathered halo of a :class:`PartitionedGraph`
+    (DESIGN.md §11): the ascending unique member vertices with their
+    neighbour and packed-adjacency rows gathered into dense tiles, plus the
+    whole id/label payload. Everything downstream of expansion
+    (canonicality, app filters, the children's quick patterns) reads this
+    view instead of a whole-graph table.
+
+    Rows are *tile-local*; columns of ``adj_t`` stay global, so one
+    resident endpoint resolves any pairwise adjacency query —
+    :meth:`is_edge` tries both sides, and every pair the pipeline asks
+    about (member↔candidate, child-embedding pairs) has at most one
+    non-member vertex."""
+
+    uniq: torch.Tensor         # (U,) int32 ascending halo ids, pad sentinel n
+    labels: torch.Tensor       # (n,) int32
+    edge_uv: torch.Tensor      # (m, 2) int32
+    edge_labels: torch.Tensor  # (m,) int32
+    nbr_t: torch.Tensor        # (U, D) int32 gathered neighbour rows, pad -1
+    nbr_eid_t: torch.Tensor    # (U, 0) int32: edge mode (not ported) reads it
+    adj_t: torch.Tensor        # (U, W) int32 gathered adjacency rows
+
+    @property
+    def n(self) -> int:
+        return self.labels.shape[0]
+
+    @property
+    def m(self) -> int:
+        return self.edge_uv.shape[0]
+
+    @property
+    def max_degree(self) -> int:
+        return self.nbr_t.shape[1]
+
+    @property
+    def device(self) -> torch.device:
+        return self.labels.device
+
+    def rank(self, v):
+        """(tile row of each global id, hit mask). ``uniq`` is ascending
+        with sentinel-``n`` padding, so translation is one searchsorted;
+        misses return a clamped-safe row with ``hit=False``."""
+        key = v.clamp(0, self.n).to(self.uniq.dtype)
+        r = torch.searchsorted(self.uniq, key)
+        r = r.clamp(max=self.uniq.shape[0] - 1).to(torch.int32)
+        return r, (self.uniq[r] == v) & (v >= 0)
+
+    def is_edge(self, u, v):
+        """Symmetric O(1) edge query resolved from whichever endpoint is
+        tile-resident (False when neither is, or for out-of-range ids) —
+        the total-graph contract every generic caller (quick patterns, app
+        filters) relies on."""
+        ru, hu = self.rank(u)
+        rv, hv = self.rank(v)
+        return (
+            bitset.test_bit(self.adj_t, torch.where(hu, ru, -1), v)
+            | bitset.test_bit(self.adj_t, torch.where(hv, rv, -1), u)
+        )
+
+
+def halo_cap(members_shape, mode: str, n: int) -> int:
+    """Static tile capacity for a chunk: the distinct halo can never exceed
+    min(member-vertex slots, n), so the pow2 of that bound makes tile
+    overflow impossible by construction — no new host syncs, no retry."""
+    c, k = members_shape
+    slots = c * k * (2 if mode == "edge" else 1)
+    # pow2 bucket (config.next_pow2 inlined: runtime.config imports would
+    # cycle through the runtime package __init__)
+    return 1 << max(0, (max(min(slots, int(n)), 1) - 1).bit_length())
+
+
+def halo_vertices(g, members, n_valid, mode: str):
+    """Flat (possibly duplicated) halo vertex ids of a chunk: the members
+    themselves (vertex mode); invalid slots -1. Edge mode (member-edge
+    endpoints) comes with FSM."""
+    _require_vertex(mode)
+    k = members.shape[1]
+    valid = torch.arange(k, device=members.device)[None, :] < n_valid[:, None]
+    return members.masked_fill(~valid, -1).reshape(-1)
+
+
+def build_tile_view(
+    g: PartitionedGraph,
+    members: torch.Tensor,
+    n_valid: torch.Tensor,
+    mode: str,
+    *,
+    use_pallas: bool = False,
+    compact_kernel: bool = False,
+) -> TileView:
+    """The tile-gather stage of the fused pipeline on one process: halo
+    unique (presence table + stream compaction, ``kernels/gather.py``)
+    followed by row gathers from the shard-stacked tables through the
+    global->flat translation of ``PartitionedGraph.flat_index``. No host
+    sync: the tile capacity is a static function of the chunk shape."""
+    _require_vertex(mode)
+    cap = halo_cap(members.shape, mode, g.n)
+    verts = halo_vertices(g, members, n_valid, mode)
+    uniq, _ = gather_kernel_lib.halo_unique(
+        verts, g.n, cap, use_kernel=compact_kernel
+    )
+    fi, ok = g.flat_index(uniq)
+    fi = torch.where(ok, fi, -1)
+    d, w = g.max_degree, g.adj_sh.shape[2]
+    nbr_t = gather_kernel_lib.gather_rows(
+        g.nbr_sh.reshape(-1, d), fi, -1, use_kernel=use_pallas
+    )
+    adj_t = gather_kernel_lib.gather_rows(
+        g.adj_sh.reshape(-1, w), fi, 0, use_kernel=use_pallas
+    )
+    return TileView(
+        uniq=uniq,
+        labels=g.labels,
+        edge_uv=g.edge_uv,
+        edge_labels=g.edge_labels,
+        nbr_t=nbr_t,
+        nbr_eid_t=torch.zeros((cap, 0), dtype=torch.int32,
+                              device=members.device),
+        adj_t=adj_t,
+    )
+
+
+def member_tile_rows(view: TileView, members, n_valid):
+    """(tile row of each member slot, -1 where the slot is invalid or
+    missed the tile; the mask of slots whose row is read). Members are
+    halo-resident by construction, so every valid slot hits."""
+    k = members.shape[1]
+    member_ok = (torch.arange(k, device=members.device)[None, :]
+                 < n_valid[:, None])
+    ranks, in_tile = view.rank(members)
+    row_ok = member_ok & in_tile
+    return torch.where(row_ok, ranks, -1), row_ok
 
 
 class Expansion(NamedTuple):
@@ -36,13 +180,6 @@ class Expansion(NamedTuple):
     keep: torch.Tensor         # (Ncand,) bool — canonical, deduped, valid
     n_generated: torch.Tensor  # () int32 raw candidate slots that were valid
     n_canonical: torch.Tensor  # () int32 survivors of the canonicality check
-
-
-def _require_vertex(mode: str) -> None:
-    if mode != "vertex":
-        raise NotImplementedError(
-            "edge-mode exploration comes with FSM; see ROADMAP.md"
-        )
 
 
 def _flat_rows(c: int, per_row: int, device) -> torch.Tensor:
@@ -70,19 +207,35 @@ def expand_vertex(
     ``canonical_check`` kernel; ``fused`` additionally evaluates the
     validity masks inside the ``expand_canonical`` kernel, skipping the
     ``(C, k, k, D)`` intermediate. (The knob keeps the JAX package's name.)
+
+    On a :class:`TileView` the member-rooted lookups go through the
+    members' tile ranks while ids stay global, and the check is the
+    tile-indexed ``canonical_check_tiles``; ``fused`` does not apply there
+    (the view has no whole-graph tables), as in the reference.
     """
-    if use_pallas and fused:
+    tiled = isinstance(g, TileView)
+    if use_pallas and fused and not tiled:
         return _expand_vertex_fused(g, members, n_valid)
     c, k = members.shape
     d = g.max_degree
     dev = members.device
-    cand, valid = expand_masks(members, n_valid, g.nbr, g.adj_bits)
+    if tiled:
+        mrow, row_ok = member_tile_rows(g, members, n_valid)
+        cand, valid = expand_masks(members, n_valid, g.nbr_t, g.adj_t,
+                                   rows=mrow, row_ok=row_ok)
+    else:
+        cand, valid = expand_masks(members, n_valid, g.nbr, g.adj_bits)
 
     flat_cand = cand.reshape(c * k * d)
     flat_rows = _flat_rows(c, k * d, dev)
     flat_valid = valid.reshape(c * k * d)
 
-    if use_pallas:
+    if tiled:
+        canon = cc_ops.canonical_check_tiles(
+            members[flat_rows], mrow[flat_rows], n_valid[flat_rows],
+            flat_cand, g.adj_t, use_pallas=use_pallas,
+        )
+    elif use_pallas:
         canon = cc_ops.canonical_check(
             g, members[flat_rows], n_valid[flat_rows], flat_cand,
             mode="vertex",
@@ -158,6 +311,9 @@ def expand_and_compact(
     """Expand + canonicality + compaction (no app filter). Returns
     ``(children, count, n_generated, n_canonical)``."""
     _require_vertex(mode)
+    if isinstance(g, PartitionedGraph):
+        g = build_tile_view(g, members, n_valid, mode, use_pallas=use_pallas,
+                            compact_kernel=compact_kernel)
     exp = expand_vertex(g, members, n_valid, use_pallas=use_pallas,
                         fused=fused)
     children, count = compact(
@@ -198,9 +354,18 @@ def fused_chunk_step(
     same pass and returns the 7-tuple ``(children, count, uniq (acap, 3),
     ucounts (acap,) int32, n_uniq, n_generated, n_canonical)`` where
     ``acap = min(out_cap, agg_qcap)``; ``n_uniq`` is unclamped, so an
-    overflowing partial is detected at the fold."""
+    overflowing partial is detected at the fold.
+
+    With a :class:`PartitionedGraph` the pass opens with the tile-gather
+    stage (:func:`build_tile_view`) and every downstream consumer —
+    expansion, canonicality, the app filter, the children's quick patterns
+    — runs on the :class:`TileView`; the output contract is unchanged. A
+    pre-built ``TileView`` is accepted too."""
     _require_vertex(mode)
     dev = members.device
+    if isinstance(g, PartitionedGraph):
+        g = build_tile_view(g, members, n_valid, mode, use_pallas=use_pallas,
+                            compact_kernel=compact_kernel)
     exp = expand_vertex(g, members, n_valid, use_pallas=use_pallas,
                         fused=fused)
     keep = exp.keep

@@ -8,9 +8,9 @@ Two views:
     uint32 bits of the host table), edge endpoint table, per-vertex
     incident-edge table. :func:`to_device` puts them on the card unless the
     caller asks for the CPU.
-
-The partitioned layout (``PartitionedGraph``) is not ported yet; see
-ROADMAP.md.
+  * :class:`PartitionedGraph` — the partitioned layout (DESIGN.md §11):
+    contiguous vertex ranges, one CSR shard and packed adjacency tile per
+    part, stacked on a leading shard axis (:func:`to_partitioned`).
 """
 from __future__ import annotations
 
@@ -199,6 +199,214 @@ def to_device(g: Graph, device=None) -> DeviceGraph:
             "adj_bits": g.adjacency_bits(),
             "edge_uv": g.edges.astype(np.int32),
             "edge_labels": edge_labels,
+        },
+        device,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Partitioned layout: per-shard CSR tables + packed adjacency tiles
+# ---------------------------------------------------------------------------
+
+def partition_bounds(g: Graph, n_parts: int, balance: str = "degree") -> np.ndarray:
+    """Contiguous vertex-range partition boundaries: ``(n_parts + 1,)`` int32
+    offsets with ``offsets[0] == 0`` and ``offsets[-1] == n``.
+
+    ``balance="vertex"`` splits the id space evenly; ``balance="degree"``
+    places the boundaries so each shard owns ~1/W of the total adjacency
+    *payload* (degree + 1 per vertex, the +1 keeping empty-degree runs from
+    collapsing a shard to zero rows on skewed graphs)."""
+    n_parts = int(n_parts)
+    if n_parts < 1:
+        raise ValueError(f"n_parts must be >= 1, got {n_parts}")
+    if balance == "vertex":
+        bounds = np.linspace(0, g.n, n_parts + 1)
+    elif balance == "degree":
+        load = np.cumsum(g.degrees().astype(np.int64) + 1)
+        total = load[-1] if g.n else 0
+        targets = total * np.arange(1, n_parts) / n_parts
+        inner = np.searchsorted(load, targets, side="left") + 1
+        bounds = np.concatenate([[0], inner, [g.n]])
+    else:
+        raise ValueError(f"unknown partition balance {balance!r}")
+    bounds = np.rint(bounds).astype(np.int64)
+    # monotone repair: a degenerate split (tiny n) may duplicate boundaries
+    bounds = np.maximum.accumulate(np.clip(bounds, 0, g.n))
+    return bounds.astype(np.int32)
+
+
+class PartitionedGraph(NamedTuple):
+    """The partitioned layout (DESIGN.md §11): contiguous vertex ranges, one
+    CSR shard + packed-bitmap adjacency tile per part, padded to a common
+    row count so the shards stack into single tensors whose leading axis is
+    the shard axis; ``labels`` / ``edge_uv`` / ``edge_labels`` stay whole.
+
+    On one process the stacked tables double as a *total* graph view:
+    :meth:`is_edge` translates global vertex ids through ``part_offsets``,
+    so every layer that only asks id/adjacency questions (quick patterns,
+    app filters) runs unchanged on either layout. The exploration hot path
+    reaches the tables through gathered halo tiles
+    (``explore.build_tile_view`` / ``kernels/gather.py``)."""
+
+    part_offsets: torch.Tensor  # (W + 1,) int32 vertex-range boundaries
+    labels: torch.Tensor        # (n,) int32
+    edge_uv: torch.Tensor       # (m, 2) int32
+    edge_labels: torch.Tensor   # (m,) int32
+    nbr_sh: torch.Tensor        # (W, P, D) int32 neighbour shards, pad -1
+    nbr_eid_sh: torch.Tensor    # (W, P, D) int32 incident-edge shards, pad -1
+    deg_sh: torch.Tensor        # (W, P) int32 degrees, pad 0
+    adj_sh: torch.Tensor        # (W, P, Wd) int32 packed adjacency (uint32 bits)
+
+    @property
+    def n(self) -> int:
+        return self.labels.shape[0]
+
+    @property
+    def m(self) -> int:
+        return self.edge_uv.shape[0]
+
+    @property
+    def n_parts(self) -> int:
+        return self.nbr_sh.shape[0]
+
+    @property
+    def tile_rows(self) -> int:
+        """Padded rows per shard (P): the common slot count of the stacks."""
+        return self.nbr_sh.shape[1]
+
+    @property
+    def max_degree(self) -> int:
+        return self.nbr_sh.shape[2]
+
+    @property
+    def device(self) -> torch.device:
+        return self.labels.device
+
+    def owner(self, v):
+        """Shard owning each (clipped-safe) global vertex id."""
+        safe = v.clamp(0, self.n - 1).to(self.part_offsets.dtype)
+        own = torch.searchsorted(self.part_offsets, safe, right=True) - 1
+        return own.clamp(0, self.n_parts - 1).to(torch.int32)
+
+    def flat_index(self, v):
+        """(flat row into the shard-stacked tables, in-range mask) for
+        global vertex ids ``v`` — rows of pad slots are never produced."""
+        own = self.owner(v)
+        loc = v.clamp(0, self.n - 1) - self.part_offsets[own]
+        ok = (v >= 0) & (v < self.n)
+        return (own * self.tile_rows + loc).to(torch.int32), ok
+
+    def nbr_rows(self, v):
+        """Gathered neighbour rows ``(..., D)`` for global ids (pad -1)."""
+        fi, ok = self.flat_index(v)
+        rows = self.nbr_sh.reshape(-1, self.max_degree)[fi]
+        return rows.masked_fill(~ok[..., None], -1)
+
+    def is_edge(self, u, v):
+        """Total O(1) edge query across the shard stack (False for
+        out-of-range ids) — the contract of ``DeviceGraph.is_edge``."""
+        fi, ok = self.flat_index(u)
+        adj_flat = self.adj_sh.reshape(-1, self.adj_sh.shape[2])
+        return bitset.test_bit(adj_flat, torch.where(ok, fi, -1), v)
+
+    @property
+    def per_device_adjacency_bytes(self) -> int:
+        """Adjacency payload ONE device holds: its CSR shard (neighbour +
+        incident-edge + degree rows) plus its packed adjacency tile."""
+        w = self.n_parts
+        return (
+            self.nbr_sh.numel() + self.nbr_eid_sh.numel()
+            + self.deg_sh.numel()
+        ) * 4 // w + self.adj_sh.numel() * 4 // w
+
+    @property
+    def replicated_bytes(self) -> int:
+        """Payload every device still replicates (labels + edge table)."""
+        return (self.labels.numel() + self.edge_uv.numel()
+                + self.edge_labels.numel()) * 4
+
+
+def replicated_adjacency_bytes(g: DeviceGraph) -> int:
+    """Adjacency payload of the replicated layout (every device holds all
+    of it)."""
+    return (g.nbr.numel() + g.nbr_eid.numel() + g.deg.numel()
+            + g.adj_bits.numel()) * 4
+
+
+#: the fields of a PartitionedGraph, in order (the JAX package's order).
+PARTITIONED_FIELDS = PartitionedGraph._fields
+
+
+def partitioned_graph_from_numpy(arrays, device=None) -> PartitionedGraph:
+    """Build a :class:`PartitionedGraph` from numpy arrays of its fields — a
+    mapping, or any object with an ``_asdict`` (the JAX package's
+    ``PartitionedGraph`` after ``np.asarray`` of each field). ``adj_sh``
+    may arrive as uint32; it is stored as int32 with the same bits."""
+    if hasattr(arrays, "_asdict"):
+        arrays = arrays._asdict()
+    device = resolve_device(device)
+    out = {}
+    for name in PARTITIONED_FIELDS:
+        a = np.asarray(arrays[name])
+        if a.dtype == np.uint32:
+            a = a.view(np.int32)
+        # a read-only array (a JAX array's view) is copied once
+        out[name] = torch.from_numpy(
+            np.require(a, np.int32, ["C", "W"])
+        ).to(device)
+    return PartitionedGraph(**out)
+
+
+def to_partitioned(g, n_parts: int, balance: str = "degree",
+                   device=None) -> PartitionedGraph:
+    """Build the partitioned layout from a host graph: vertex-range CSR
+    shards (optionally degree-balanced boundaries) + per-range packed
+    adjacency tiles, padded to a common row count and stacked on a leading
+    shard axis. Adjacency tiles are built range-wise (O(m) per shard).
+
+    A ``DeviceGraph`` is accepted too: its content round-trips through the
+    host ``Graph`` unchanged, and the tables land where its tensors are
+    unless ``device`` says otherwise. For a host ``Graph``, ``device=None``
+    means the current CUDA device (raising when there is none)."""
+    if isinstance(g, DeviceGraph):
+        if device is None:
+            device = g.device
+        g = Graph(
+            n=g.n,
+            labels=g.labels.cpu().numpy(),
+            edges=g.edge_uv.cpu().numpy(),
+            edge_labels=g.edge_labels.cpu().numpy(),
+        )
+    bounds = partition_bounds(g, n_parts, balance)
+    nbr, ned, deg = g.neighbor_table()
+    d = nbr.shape[1]
+    w = bitset.n_words(g.n)
+    rows = max(int((bounds[1:] - bounds[:-1]).max()), 1)
+    nbr_sh = np.full((n_parts, rows, d), -1, dtype=np.int32)
+    ned_sh = np.full((n_parts, rows, d), -1, dtype=np.int32)
+    deg_sh = np.zeros((n_parts, rows), dtype=np.int32)
+    adj_sh = np.zeros((n_parts, rows, w), dtype=np.uint32)
+    for s in range(n_parts):
+        lo, hi = int(bounds[s]), int(bounds[s + 1])
+        nbr_sh[s, : hi - lo] = nbr[lo:hi]
+        ned_sh[s, : hi - lo] = ned[lo:hi]
+        deg_sh[s, : hi - lo] = deg[lo:hi]
+        adj_sh[s, : hi - lo] = g.adjacency_tile(lo, hi)
+    edge_labels = (
+        g.edge_labels
+        if g.edge_labels is not None
+        else np.zeros(g.m, dtype=np.int32)
+    )
+    return partitioned_graph_from_numpy(
+        {
+            "part_offsets": bounds,
+            "labels": g.labels,
+            "edge_uv": g.edges.astype(np.int32),
+            "edge_labels": edge_labels,
+            "nbr_sh": nbr_sh,
+            "nbr_eid_sh": ned_sh,
+            "deg_sh": deg_sh,
+            "adj_sh": adj_sh,
         },
         device,
     )

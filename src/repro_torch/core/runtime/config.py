@@ -75,8 +75,15 @@ class RunConfig:
     #: starting capacity of the cross-batch level-1 merge table, grown pow2
     #: on overflow.
     agg_qcap: int = 4096
-    #: graph shards of the partitioned layout (not ported: must stay None).
+    #: number of graph shards of the partitioned layout (DESIGN.md §11):
+    #: the graph lives as stacked per-shard CSR tables + packed adjacency
+    #: tiles (``core.graph.PartitionedGraph``) and the fused pipeline opens
+    #: with a halo-tile gather instead of whole-graph lookups. None keeps
+    #: the whole-graph layout.
     graph_partition: Optional[int] = None
+    #: partition boundary placement: "degree" balances adjacency payload
+    #: per shard, "vertex" splits the id space evenly.
+    partition_balance: str = "degree"
     #: superstep checkpoints (not ported: must stay None).
     checkpoint_dir: Optional[str] = None
     #: tracing / progress log (not ported: must stay off).
@@ -93,7 +100,6 @@ class RunConfig:
             "faults": self.faults is not None,
             "store": self.store != "raw",
             "device_budget_bytes": self.device_budget_bytes is not None,
-            "graph_partition": bool(self.graph_partition),
         }
         # unknown values raise ValueError
         self.resolve_canonical_placement()

@@ -4,10 +4,12 @@ level-synchronous, port of ``repro.core.runtime.loop``.
 ``SuperstepRuntime`` owns the BSP loop — init frontier → (fused or chunk
 loop) expand → store seal → pattern aggregate → app post-step —
 parameterised by an :class:`~repro_torch.core.runtime.backend.ExecutionBackend`.
-The runtime follows the tensors of its :class:`DeviceGraph`: a host
-:class:`Graph` is uploaded to ``device`` (the card unless the caller asks
-for the CPU). Checkpoint/resume, fault injection and the supervisor are
-not ported yet (ROADMAP.md).
+The runtime follows the tensors of its :class:`DeviceGraph` or
+:class:`PartitionedGraph`: a host :class:`Graph` is uploaded to ``device``
+(the card unless the caller asks for the CPU), and with
+``RunConfig.graph_partition`` it is laid out partitioned (DESIGN.md §11).
+Checkpoint/resume, fault injection and the supervisor are not ported yet
+(ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -20,7 +22,9 @@ import torch
 
 from repro_torch.core import aggregation, obs
 from repro_torch.core.api import MiningApp
-from repro_torch.core.graph import DeviceGraph, Graph, to_device
+from repro_torch.core.graph import (
+    DeviceGraph, Graph, PartitionedGraph, to_device, to_partitioned,
+)
 from repro_torch.core.runtime import programs
 from repro_torch.core.runtime.backend import ExecutionBackend
 from repro_torch.core.runtime.config import RunConfig
@@ -43,7 +47,7 @@ class SuperstepRuntime:
 
     def __init__(
         self,
-        graph: Graph | DeviceGraph,
+        graph: Graph | DeviceGraph | PartitionedGraph,
         app: MiningApp,
         config: Optional[RunConfig] = None,
         backend: Optional[ExecutionBackend] = None,
@@ -52,19 +56,30 @@ class SuperstepRuntime:
         from repro_torch.core.runtime.serial import SerialBackend
 
         self.config = config if config is not None else RunConfig()
-        if isinstance(graph, Graph):
-            self.g = to_device(graph, device)
-        elif isinstance(graph, DeviceGraph):
+        if isinstance(graph, (DeviceGraph, PartitionedGraph)):
             if device is not None and torch.device(device) != graph.device:
                 raise ValueError(
                     f"graph tensors are on {graph.device}, device={device!r}"
                 )
+        elif not isinstance(graph, Graph):
+            raise TypeError(f"{type(graph).__name__}: expected a Graph, "
+                            "DeviceGraph or PartitionedGraph")
+        if isinstance(graph, PartitionedGraph):
             self.g = graph
-        else:
-            raise NotImplementedError(
-                f"{type(graph).__name__}: only Graph and DeviceGraph are "
-                "ported; the partitioned layout waits (ROADMAP.md)"
+        elif self.config.graph_partition:
+            # partitioned layout (DESIGN.md §11): CSR shards + adjacency
+            # tiles replace the whole-graph DeviceGraph; a DeviceGraph input
+            # is re-partitioned where its tensors are
+            self.g = to_partitioned(
+                graph,
+                self.config.graph_partition,
+                self.config.partition_balance,
+                device,
             )
+        elif isinstance(graph, Graph):
+            self.g = to_device(graph, device)
+        else:
+            self.g = graph
         self.app = app
         self.backend = backend if backend is not None else SerialBackend()
         self.store = self.backend.bind(self.g, self.app, self.config)

@@ -17,6 +17,12 @@ host reference path (``aggregation.aggregate_rows``). Level 2 runs where
 ``canonical_placement`` puts it (DESIGN.md §15): on the host, on a
 background thread joined at the next seal (``host_async``), or on the
 device through the canonical-refine kernel (``device``).
+
+The bound graph is a ``DeviceGraph`` or a ``PartitionedGraph``; with the
+latter every chunk program opens with the halo-tile gather
+(``explore.build_tile_view``). The reference's standalone gather probe for
+``StepStats.t_gather`` runs only under its ``trace_sync`` tracing mode,
+which is not ported, so ``t_gather`` stays 0.0 here as it does there.
 """
 from __future__ import annotations
 

@@ -38,6 +38,8 @@ LAUNCHES: Dict[str, int] = {
     "radix_hist": 0,
     "radix_scatter": 0,
     "canonical_refine": 0,
+    "gather_rows": 0,
+    "canonical_check_tiles": 0,
 }
 
 _P = ctypes.c_void_p
@@ -54,6 +56,9 @@ _SIGNATURES = {
     "repro_radix_hist": [_P, _P, _P, _L, _I, _I, _I, _P, _P, _P, _P],
     "repro_radix_scatter": [_P, _P, _P, _L, _I, _I, _P, _P, _P, _P, _P],
     "repro_canonical_refine": [_P, _P, _L, _P, _P, _I, _I, _P, _P, _P, _P],
+    "repro_gather_rows": [_P, _L, _L, _P, _L, _I, _P, _P],
+    "repro_canonical_check_tiles": [_P, _P, _P, _P, _P, _L, _I, _L, _L, _P,
+                                    _P],
 }
 
 _LIB: Optional[ctypes.CDLL] = None

@@ -1,10 +1,14 @@
 """Embedding-canonicality check (paper Alg. 2) as hand-written CUDA kernels,
 port of ``repro.kernels.canonical_check.canonical_check``.
 
-Two kernels (``csrc/canonical_check.cu``, ``csrc/expand_canonical.cu``):
+Three kernels (``csrc/canonical_check.cu``, ``csrc/canonical_check_tiles.cu``,
+``csrc/expand_canonical.cu``):
 
   * :func:`canonical_check_cuda` — the standalone Alg.-2 check over a flat
     batch of (members, cand) pairs;
+  * :func:`canonical_check_tiles_cuda` — the same check over a gathered
+    halo tile of the partitioned layout: adjacency read at the members'
+    tile ranks, order tests on the global ids;
   * :func:`expand_canonical_cuda` — the *fused* expansion kernel: for every
     parent it enumerates the neighbour-table candidates and evaluates slot
     validity, not-a-member, first-occurrence dedup and the Alg.-2 check in
@@ -75,23 +79,92 @@ def canonical_check_cuda(members, n_valid, cand, adj_bits):
     return out
 
 
-def expand_masks(members, n_valid, nbr, adj_bits):
+def canonical_check_tiles_ref(members, ranks, n_valid, cand, adj_tile):
+    """Plain version of :func:`canonical_check_tiles_cuda` (the jnp route
+    of the JAX package, ``ops.canonical_check_tiles_ref``): adjacency read
+    at the members' halo-tile ``ranks`` (< 0 = not in the tile = not
+    adjacent), order tests on the global ids."""
+    b, k = members.shape
+    pos = torch.arange(k, device=members.device)[None, :]
+    valid = pos < n_valid[:, None]
+    first_ok = torch.where(n_valid > 0, members[:, 0] < cand, True)
+    neigh = (
+        bitset.test_bit(adj_tile, ranks, cand[:, None])
+        & valid & (members >= 0)
+    )
+    found_after = torch.cumsum(neigh.to(torch.int32), dim=1,
+                               dtype=torch.int32) > 0
+    found_before = torch.cat(
+        [torch.zeros((b, 1), dtype=torch.bool, device=members.device),
+         found_after[:, :-1]], dim=1,
+    )
+    violation = valid & found_before & (members > cand[:, None])
+    return first_ok & ~violation.any(dim=1)
+
+
+def canonical_check_tiles_cuda(members, ranks, n_valid, cand, adj_tile):
+    """members, ranks (B, k) int32; n_valid, cand (B,) int32; adj_tile
+    (U, W) int32 gathered halo rows (``ranks`` index it; ranks < 0 read as
+    not adjacent). Returns (B,) bool. Any ``B`` is accepted, including 0."""
+    if not on_cuda(members):
+        return canonical_check_tiles_ref(members, ranks, n_valid, cand,
+                                         adj_tile)
+    b, k = members.shape
+    dev = members.device
+    _check_int32("members", members, 2, dev)
+    _check_int32("ranks", ranks, 2, dev)
+    _check_int32("n_valid", n_valid, 1, dev)
+    _check_int32("cand", cand, 1, dev)
+    _check_int32("adj_tile", adj_tile, 2, dev)
+    u, w = adj_tile.shape
+    if (not 1 <= k <= MAX_K or ranks.shape != members.shape
+            or n_valid.shape[0] != b or cand.shape[0] != b
+            or (b and not (u and w))):
+        raise ValueError(f"bad shapes: members {tuple(members.shape)}, ranks "
+                         f"{tuple(ranks.shape)}, n_valid "
+                         f"{tuple(n_valid.shape)}, cand {tuple(cand.shape)}, "
+                         f"adj_tile {(u, w)}")
+    members, ranks = members.contiguous(), ranks.contiguous()
+    n_valid, cand = n_valid.contiguous(), cand.contiguous()
+    adj_tile = adj_tile.contiguous()
+    out = torch.empty((b,), dtype=torch.bool, device=dev)
+    if b == 0:
+        return out
+    lib = build.library()
+    with torch.cuda.device(dev):
+        build.count_launch("canonical_check_tiles")
+        build.check(lib.repro_canonical_check_tiles(
+            members.data_ptr(), ranks.data_ptr(), n_valid.data_ptr(),
+            cand.data_ptr(), adj_tile.data_ptr(), b, k, u, w,
+            out.data_ptr(), build.stream_of(members),
+        ), "canonical_check_tiles")
+    return out
+
+
+def expand_masks(members, n_valid, nbr, adj_bits, rows=None, row_ok=None):
     """The candidate table and validity mask of the unfused vertex
     expansion (the jnp route of ``explore.expand_vertex``): ``cand``
     (C, k, D) is neighbour j of member i (-1 past the row's members or the
     member's degree); ``valid`` is slot-ok & not-a-member &
-    first-occurrence (no earlier member adjacent)."""
+    first-occurrence (no earlier member adjacent).
+
+    ``rows`` (C, k) are the members' rows of ``nbr`` / ``adj_bits`` and
+    ``row_ok`` the slots whose row is read: by default the members
+    themselves and the valid slots; on a halo tile their tile ranks (-1
+    where the slot is invalid or missed the tile)."""
     k = members.shape[1]
     pos = torch.arange(k, device=members.device)
     member_ok = pos[None, :] < n_valid[:, None]                    # (C, k)
-    safe = members.clamp(0, nbr.shape[0] - 1)
-    cand = nbr[safe].masked_fill(~member_ok[:, :, None], -1)       # (C, k, D)
+    if rows is None:
+        rows, row_ok = members, member_ok
+    safe = rows.clamp(0, nbr.shape[0] - 1)
+    cand = nbr[safe].masked_fill(~row_ok[:, :, None], -1)          # (C, k, D)
     slot_ok = cand >= 0
     # not already a member of the embedding
     is_member = (cand[:, :, :, None] == members[:, None, None, :]).any(-1)
     # first-occurrence dedup: drop if an *earlier* member is adjacent to cand
     adj_em = bitset.test_bit(
-        adj_bits, members[:, :, None, None], cand[:, None, :, :]
+        adj_bits, rows[:, :, None, None], cand[:, None, :, :]
     ) & member_ok[:, :, None, None]                                # (C, k_m, k_i, D)
     earlier = pos[None, :, None, None] < pos[None, None, :, None]
     seen_earlier = (adj_em & earlier).any(dim=1)                   # (C, k_i, D)

@@ -16,13 +16,16 @@ from repro_torch.core import RunConfig, run
 from repro_torch.core.apps import CliquesApp, MotifsApp
 from repro_torch.core import canon_math
 from repro_torch.kernels import aggregate, build, canonical_refine, compact
-from repro_torch.kernels import radix_bin
+from repro_torch.kernels import gather, radix_bin
 from repro_torch.kernels.canonical_check.canonical_check import (
     canonical_check_cuda,
     canonical_check_ref,
+    canonical_check_tiles_cuda,
+    canonical_check_tiles_ref,
     expand_canonical_cuda,
     expand_canonical_ref,
 )
+from repro_torch.core import explore
 
 pytestmark = pytest.mark.cuda
 
@@ -197,3 +200,69 @@ def test_force_device_card_run_equals_cpu_run(cuda_device, placement):
                 a.n_host_syncs, a.bytes_to_host) == (
             b.n_children, b.n_quick_patterns, b.n_canonical_patterns,
             b.n_host_syncs, b.bytes_to_host)
+
+
+def test_partition_kernels_match_plain_versions(cuda_device):
+    """gather_rows and canonical_check_tiles against their plain versions:
+    row counts that are no block multiple, row ids of -1, N and past N,
+    tables wider and narrower than a block, and a whole tile view built
+    through the kernels against the one built on the CPU."""
+    dev = cuda_device
+    rng = np.random.default_rng(2)
+    before = dict(build.LAUNCHES)
+    for n, r, u in ((1000, 2945, 777), (1000, 313, 8193), (5, 3, 1),
+                    (64, 257, 0)):
+        table = torch.from_numpy(
+            rng.integers(-2**31, 2**31, (n, r), dtype=np.int64)
+            .astype(np.int32)).to(dev)
+        rows = torch.from_numpy(
+            rng.integers(-2, n + 2, u).astype(np.int32)).to(dev)
+        if u:
+            rows[0] = n
+        for fill in (-1, 0):
+            assert torch.equal(gather.gather_rows_cuda(table, rows, fill),
+                               gather.gather_rows_ref(table, rows, fill))
+
+    pg = TG.to_partitioned(TG.random_labeled(300, 2000, n_labels=3, seed=4),
+                           4, device=dev)
+    pg_cpu = TG.PartitionedGraph(*(t.cpu() for t in pg))
+    members, n_valid = (t.to(dev) for t in _members(rng, 777, 3, pg.n))
+    kw = dict(use_pallas=True, compact_kernel=True)
+    view = explore.build_tile_view(pg, members, n_valid, "vertex", **kw)
+    view_cpu = explore.build_tile_view(pg_cpu, members.cpu(), n_valid.cpu(),
+                                       "vertex", **kw)
+    for a, b in zip(view, view_cpu):
+        assert torch.equal(a.cpu(), b)
+    b = 50_001
+    flat = torch.from_numpy(rng.integers(0, 777, b)).to(dev)
+    ranks = torch.from_numpy(
+        rng.integers(-1, view.uniq.shape[0] + 2, (b, 3)).astype(np.int32)
+    ).to(dev)
+    cand = torch.from_numpy(rng.integers(-1, pg.n, b).astype(np.int32)).to(dev)
+    args = (members[flat], ranks, n_valid[flat], cand, view.adj_t)
+    assert torch.equal(canonical_check_tiles_cuda(*args),
+                       canonical_check_tiles_ref(*args))
+    assert canonical_check_tiles_cuda(
+        *(a[:0] for a in args[:4]), view.adj_t).shape == (0,)
+    torch.cuda.synchronize()
+    for name in ("gather_rows", "canonical_check_tiles", "stream_compact"):
+        assert build.LAUNCHES[name] > before[name], name
+
+
+@pytest.mark.parametrize("app", [MotifsApp(max_size=3), CliquesApp(max_size=4)])
+def test_partitioned_card_run_equals_cpu_run(cuda_device, app):
+    g = TG.mico_like(0.003)
+    cfg = RunConfig(graph_partition=4, chunk_size=256, initial_capacity=64)
+    before = dict(build.LAUNCHES)
+    gpu = run(g, app, cfg, device=cuda_device)
+    cpu = run(g, app, cfg, device="cpu")
+    assert gpu.patterns == cpu.patterns
+    for a, b in zip(gpu.stats.steps, cpu.stats.steps):
+        assert (a.n_children, a.n_generated, a.n_canonical, a.n_host_syncs,
+                a.n_quick_patterns, a.bytes_to_host) == (
+            b.n_children, b.n_generated, b.n_canonical, b.n_host_syncs,
+            b.n_quick_patterns, b.bytes_to_host)
+    for size, emb in cpu.embeddings.items():
+        np.testing.assert_array_equal(gpu.embeddings[size], emb)
+    for name in ("gather_rows", "canonical_check_tiles"):
+        assert build.LAUNCHES[name] > before[name], name

@@ -13,7 +13,7 @@ from repro.core import EngineConfig, graph as JG
 from repro.core import run as jrun
 from repro.core.apps import CliquesApp as JCliques, MotifsApp as JMotifs
 from repro.core.apps.cliques import maximal_cliques as jmaximal
-from repro_torch.core import RunConfig, graph as TG, run
+from repro_torch.core import RunConfig, explore as texplore, graph as TG, run
 from repro_torch.core.apps import CliquesApp, MotifsApp
 from repro_torch.core.apps.cliques import maximal_cliques
 from torch_parity import KERNELS_ON, assert_same_run, graph_pair
@@ -74,7 +74,7 @@ def test_entry_points_need_a_card_unless_cpu_is_asked(monkeypatch):
 
 @pytest.mark.parametrize("knob", [
     dict(store="odag"), dict(device_budget_bytes=1 << 20),
-    dict(checkpoint_dir="ckpt"), dict(graph_partition=2),
+    dict(checkpoint_dir="ckpt"),
     dict(log_every=1), dict(store="spill"),
     dict(trace=True), dict(faults=object()),
 ])
@@ -87,12 +87,24 @@ def test_unported_paths_raise(knob):
 @pytest.mark.parametrize("knob", [
     dict(canonical_placement="device"), dict(canonical_placement="host_async"),
     dict(aggregate_bin="radix"), dict(cost_model="force_device"),
+    dict(graph_partition=2),
 ])
 def test_level2_placements_and_radix_bin_run(knob):
-    """The knobs of the radix bin and the level-2 placements run and give
-    the default run's patterns (parity with the JAX package:
-    ``test_torch_level2.py``)."""
+    """The knobs of the radix bin, the level-2 placements and the
+    partitioned layout run and give the default run's patterns (parity with
+    the JAX package: ``test_torch_level2.py``,
+    ``test_torch_partition_runs.py``)."""
     g = TG.triangle_plus_tail()
     want = run(g, MotifsApp(max_size=3), device="cpu").patterns
     res = run(g, MotifsApp(max_size=3), RunConfig(**knob), device="cpu")
     assert res.patterns == want
+
+
+def test_edge_mode_tile_view_is_not_ported():
+    g = TG.to_partitioned(TG.triangle_plus_tail(), 2, device="cpu")
+    members = torch.zeros((2, 1), dtype=torch.int32)
+    n_valid = torch.ones(2, dtype=torch.int32)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        texplore.build_tile_view(g, members, n_valid, mode="edge")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        texplore.halo_vertices(g, members, n_valid, "edge")
