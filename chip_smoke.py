@@ -31,7 +31,26 @@ Phases, in order; any failure exits non-zero and prints no result:
      whole-graph runs; the launch counts are zeroed
      just before each run and read just after, and every kernel must have
      launched. The refine row is then timed on the distinct table that
-     level 2 of the last run's step 3 refined.
+     level 2 of the last run's step 3 refined;
+  6. the model zoo's dense decoder (``repro_torch.models``):
+     a. RMSNorm and flash attention against their plain versions at
+        qwen2.5-14b's shapes (the forward's 8,192 x 5,120 rows and a decode
+        step's 4; attention at B=4, S=2,048, 40 heads over 8 KV heads of
+        128, at smollm-135m's 9 over 3 of 64, and at a ragged S=200), bf16
+        and f32, timed beside their plain versions and the library calls
+        ``torch.nn.functional.rms_norm`` and ``scaled_dot_product_attention``;
+     b. the card port against the CPU port on the reduced qwen2.5-14b,
+        smollm-135m and stablelm-1.6b (forward and 8 decode steps);
+     c. the main path: qwen2.5-14b at its published widths and 48 layers
+        with random weights from seed 0 on the card, a forward of 4 x 2,048
+        tokens (rmsnorm 97 and flash 48 launches, exactly) and
+        ``launch/serve.py:generate`` for 4 requests (prompt 16, gen 32: 47
+        decode steps, 4,559 rmsnorm launches, no flash), each run twice;
+        decode through the cache against the forward (B=2 x S=256), both
+        held to an f32 forward without kernels, with two wrong-attention
+        controls that must fail the bound; one decode step
+        and one forward under sync debug mode "error"; the peak device
+        bytes; a profile of one forward and one decode step.
 
 It prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. ``--json PATH`` also writes the details
@@ -59,10 +78,32 @@ HBM_BYTES_PER_S = 3.35e12
 #: half the 128 FP32 lanes behind the data sheet's 67 TFLOP/s FP32, which
 #: counts an FMA as two), operations/s.
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
+#: H100 SXM dense bf16 tensor-core rate and f32 rate outside the tensor
+#: cores (NVIDIA data sheet, an FMA counted as two), FLOP/s.
+BF16_FLOPS = 989e12
+F32_FLOPS = 67e12
 CHUNK = 4096                   # RunConfig.chunk_size default
 REFINE_ROWS = 3000             # seeded quick codes per nv (2/3 of it at nv 8)
 AGG_QCAP = 4096                # RunConfig.agg_qcap default
 PARTS = 4                      # graph shards of the partitioned runs
+MODEL = "qwen2.5-14b"          # phase 6's model, full widths and depth
+FWD_B, FWD_S = 4, 2048         # the timed forward: 4 prompts x 2,048 tokens
+SERVE_B, SERVE_P, SERVE_G = 4, 16, 32   # launch/serve.py's defaults
+CHECK_B, CHECK_S = 2, 256      # decode through the cache vs the forward
+#: decode vs forward at full depth, as relative RMS errors of the logits.
+#: Only bf16 rounding separates serving from the forward (decode rounds its
+#: softmax weights to bf16 where the kernel keeps f32, and the matmuls run
+#: at other shapes), so both are held to an f32 forward of the same
+#: weights without kernels (the reference): the decode may be at most
+#: 1.5x as far from it as the bf16 forward is, and decode and forward at
+#: most 2x that distance apart, over all positions and at each position
+#: (two draws of the same noise: about 1.4x if independent). The bf16
+#: forward itself must be within 10 % of the reference. A forward without
+#: the causal mask, or with one KV tile dropped, must land outside the
+#: decode-vs-forward bound.
+DECODE_VS_F32 = 1.5
+DECODE_VS_FORWARD = 2.0
+FORWARD_VS_F32_MAX = 0.10
 
 
 class SmokeFailure(Exception):
@@ -121,11 +162,12 @@ def max_abs_err(torch, got, want) -> int:
 
 
 def kernel_row(name, src, replaces, err, ms, plain_ms, nbytes, library_ms,
-               ops=0):
+               ops=0, op_rate=INT32_OPS_PER_S):
     """One entry of the kernels line: the bound is the larger of the bytes
-    over the memory rate and the int32 operations over their rate."""
+    over the memory rate and the operations over their type's rate (int32
+    unless ``op_rate`` says otherwise)."""
     byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    op_ms = ops / INT32_OPS_PER_S * 1e3
+    op_ms = ops / op_rate * 1e3
     row = {
         "name": name, "route": "cuda", "source": src, "replaces": replaces,
         "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -787,6 +829,434 @@ def main_path(torch, np, run, RunConfig, G, build, apps):
     return totals, runs, level2_table
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: the model zoo's dense decoder (qwen2.5-14b)
+# ---------------------------------------------------------------------------
+
+def causal_pairs(sq, sk):
+    """(query, key) pairs the start-aligned causal mask keeps."""
+    return sum(min(i + 1, sk) for i in range(sq))
+
+
+def model_kernel_checks(torch, reps=10):
+    """6a: RMSNorm and flash attention against their plain versions at the
+    model's shapes, bf16 and f32, each timed beside its plain version, its
+    bound and the library call of the same function (which the port never
+    calls). Returns the two rows of the kernels line (bf16, the main path's
+    shapes) and every case's record."""
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention_cuda, flash_attention_ref)
+    from repro_torch.kernels.rmsnorm.rmsnorm import rmsnorm_cuda, rmsnorm_ref
+    from repro_torch.configs.registry import get_arch
+
+    F = torch.nn.functional
+    torch.backends.cuda.matmul.allow_tf32 = False      # f32 means f32
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_arch(MODEL)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    rows, cases = {}, []
+    d = cfg.d_model
+    for dtype in (torch.bfloat16, torch.float32):
+        es = torch.finfo(dtype).bits // 8
+        for r, what in ((FWD_B * FWD_S, "forward"), (SERVE_B, "decode step")):
+            x = torch.randn((r, d), generator=gen, device=dev).to(dtype)
+            scale = (1 + 0.1 * torch.randn((d,), generator=gen,
+                                           device=dev)).to(dtype)
+            got = rmsnorm_cuda(x, scale, cfg.norm_eps)
+            want = rmsnorm_ref(x, scale, cfg.norm_eps)
+            torch.cuda.synchronize()
+            diff = (got.float() - want.float()).abs()
+            # both round once from f32: f32 to 1e-5, bf16 one step (2^-7)
+            lim = (1e-6 + 1e-5 * want.float().abs() if dtype == torch.float32
+                   else 2**-7 * want.float().abs())
+            need(bool((diff <= lim).all()), f"rmsnorm {dtype} ({r}, {d}) "
+                 f"differs from its plain version by {float(diff.max())}")
+            ms = time_ms(torch, lambda: rmsnorm_cuda(x, scale, cfg.norm_eps),
+                         reps)
+            plain = time_ms(torch, lambda: rmsnorm_ref(x, scale, cfg.norm_eps),
+                            reps)
+            lib = time_ms(torch, lambda: F.rms_norm(x, (d,), scale,
+                                                    cfg.norm_eps), reps)
+            row = kernel_row(
+                "rmsnorm", "src/repro_torch/kernels/csrc/rmsnorm.cu",
+                "src/repro/kernels/rmsnorm/rmsnorm.py:23", float(diff.max()),
+                ms, plain, (2 * r * d + d) * es, lib, ops=4 * r * d,
+                op_rate=F32_FLOPS)
+            cases.append(dict(row, shape=[r, d], dtype=str(dtype), at=what))
+            if dtype == torch.bfloat16 and what == "forward":
+                rows["rmsnorm"] = row
+            del x, got, want, diff
+    for dtype in (torch.bfloat16, torch.float32):
+        es = torch.finfo(dtype).bits // 8
+        rate = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
+        for what, b, s, h, kv, hd in (
+                ("qwen2.5-14b forward", FWD_B, FWD_S, cfg.n_heads,
+                 cfg.n_kv_heads, cfg.head_dim),
+                ("smollm-135m widths", FWD_B, FWD_S, 9, 3, 64),
+                ("ragged S", FWD_B, 200, cfg.n_heads, cfg.n_kv_heads,
+                 cfg.head_dim)):
+            q = torch.randn((b, s, h, hd), generator=gen, device=dev).to(dtype)
+            k = torch.randn((b, s, kv, hd), generator=gen, device=dev).to(dtype)
+            v = torch.randn((b, s, kv, hd), generator=gen, device=dev).to(dtype)
+            got = flash_attention_cuda(q, k, v)
+            want = flash_attention_ref(q, k, v)
+            torch.cuda.synchronize()
+            diff = (got.float() - want.float()).abs()
+            # the JAX package's kernel-test bounds: f32 2e-5, bf16 2e-2
+            tol = 2e-5 if dtype == torch.float32 else 2e-2
+            need(bool((diff <= tol + tol * want.float().abs()).all()),
+                 f"flash_attention {dtype} {what} differs from its plain "
+                 f"version by {float(diff.max())}")
+            del want
+            n = 3 if s > 1000 else reps
+            ms = time_ms(torch, lambda: flash_attention_cuda(q, k, v), n)
+            plain = time_ms(torch, lambda: flash_attention_ref(q, k, v), n, 1)
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True), n)
+            flops = 4 * hd * causal_pairs(s, s) * b * h
+            nbytes = (2 * q.numel() + k.numel() + v.numel()) * es
+            row = kernel_row(
+                "flash_attention",
+                "src/repro_torch/kernels/csrc/flash_attention.cu",
+                "src/repro/kernels/flash_attention/flash_attention.py:68",
+                float(diff.max()), ms, plain, nbytes, lib, ops=flops,
+                op_rate=rate)
+            cases.append(dict(row, shape=[b, s, h, kv, hd], dtype=str(dtype),
+                              at=what))
+            if dtype == torch.bfloat16 and what.startswith("qwen"):
+                rows["flash_attention"] = row
+            del q, k, v, got, diff, qt, kt, vt
+            torch.cuda.empty_cache()
+    return [rows["rmsnorm"], rows["flash_attention"]], cases
+
+
+def logit_errors(got, base, ref):
+    """Mean and largest absolute error of ``got`` and of ``base`` against
+    ``ref`` (f32 tensors on the CPU)."""
+    eg, eb = (got - ref).abs(), (base - ref).abs()
+    return {"card_mean": float(eg.mean()), "card_max": float(eg.max()),
+            "cpu_mean": float(eb.mean()), "cpu_max": float(eb.max())}
+
+
+def model_card_vs_cpu(torch, steps=8):
+    """6b: each reduced dense model with the same weights (drawn on the CPU
+    from a seed, then moved) on the card and on the CPU. The card's bf16
+    logits (cuBLAS bf16 matmuls, with the reduced-precision reductions
+    PyTorch enables by default, and the two kernels) must be as close to the
+    CPU's f32 logits as the CPU's own bf16 logits: mean absolute error at
+    most 1.25x, the largest at most 2x. Forward and ``steps`` decode
+    steps."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import build_model
+
+    out = {}
+    for name in ("qwen2.5-14b", "smollm-135m", "stablelm-1.6b"):
+        cfg = get_arch(name).reduced()
+        cpu = build_model(cfg, device="cpu", seed=5)
+        cpu32 = build_model(cfg, device="cpu", seed=5)
+        cpu32.impl.float()
+        card = build_model(cfg, device="cpu", seed=5).to("cuda")
+        tokens = torch.randint(0, cfg.vocab, (2, 32), dtype=torch.int32,
+                               generator=torch.Generator().manual_seed(6))
+        rec = {}
+        rec["forward"] = logit_errors(
+            card.forward(tokens.cuda()).float().cpu(),
+            cpu.forward(tokens).float(), cpu32.forward(tokens))
+        caches = [m.init_cache(2, steps) for m in (card, cpu, cpu32)]
+        dec = [[], [], []]
+        for t in range(steps):
+            for i, m in enumerate((card, cpu, cpu32)):
+                tok = tokens[:, t:t + 1].to(m.device)
+                logits, caches[i] = m.decode_step(caches[i], tok, t)
+                dec[i].append(logits.float().cpu())
+        rec["decode"] = logit_errors(*(torch.cat(x, 1) for x in dec))
+        for part, e in rec.items():
+            need(e["card_mean"] <= 1.25 * e["cpu_mean"]
+                 and e["card_max"] <= 2 * e["cpu_max"],
+                 f"{name} {part}: the card's bf16 logits are further from "
+                 f"the f32 logits than the CPU's: {e}")
+        out[name] = rec
+        log(f"  {name} (reduced): forward |card - f32| mean "
+            f"{rec['forward']['card_mean']:.5f} max "
+            f"{rec['forward']['card_max']:.4f} (CPU bf16 "
+            f"{rec['forward']['cpu_mean']:.5f} / "
+            f"{rec['forward']['cpu_max']:.4f}); decode mean "
+            f"{rec['decode']['card_mean']:.5f} (CPU "
+            f"{rec['decode']['cpu_mean']:.5f})")
+    return out
+
+
+class Swap:
+    """Within the block, the dense decoder's kernel calls (the names
+    ``flash_attention`` and ``_rmsnorm_kernel`` of ``models/layers.py``) go
+    to other functions: the plain versions for the f32 reference, wrong
+    variants for the controls."""
+
+    def __init__(self, **fns):
+        from repro_torch.models import layers
+        self.layers, self.fns = layers, fns
+
+    def __enter__(self):
+        self.orig = {k: getattr(self.layers, k) for k in self.fns}
+        for k, fn in self.fns.items():
+            setattr(self.layers, k, fn)
+
+    def __exit__(self, *exc):
+        for k, fn in self.orig.items():
+            setattr(self.layers, k, fn)
+
+
+def f32_reference_forward(torch, model, tokens):
+    """The forward in f32 without kernels: the kernels' plain versions, and
+    each block's weights cast to f32 one block at a time, so that the
+    reference fits beside the bf16 model."""
+    import copy
+
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention_ref)
+    from repro_torch.kernels.rmsnorm.rmsnorm import rmsnorm_ref
+    from repro_torch.models import lm
+
+    imp, cfg = model.impl, model.cfg
+    b, s = tokens.shape
+    with torch.inference_mode(), Swap(flash_attention=flash_attention_ref,
+                                      _rmsnorm_kernel=rmsnorm_ref):
+        x = imp.embed.index_select(0, tokens.reshape(-1)).float()
+        x = x.reshape(b, s, -1)
+        pos = torch.arange(s, dtype=torch.int32, device=x.device)[None]
+        for p in imp.layers:
+            x = lm._block_fwd(cfg, copy.deepcopy(p).float(), x,
+                              pos.expand(b, s))
+        x = rmsnorm_ref(x, imp.ln_f.float(), cfg.norm_eps)
+        return x @ imp.unembed.float()
+
+
+def masked_attention(torch, keep):
+    """Plain attention over (B, S, H, D) / (B, S, KV, D) keeping the
+    (query, key) pairs where ``keep(qi, kj)`` is true."""
+    def attend(q, k, v, causal=True):
+        b, s, h, d = q.shape
+        kv = k.shape[2]
+        i = torch.arange(s, device=q.device)
+        mask = keep(i[:, None], i[None, :])
+        qg = q.float().reshape(b, s, kv, h // kv, d)
+        sc = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) * d ** -0.5
+        w = torch.softmax(sc.masked_fill(~mask, float("-inf")), dim=-1)
+        o = torch.einsum("bhgqk,bkhd->bqhgd", w, v.float())
+        return o.reshape(b, s, h, d).to(q.dtype)
+    return attend
+
+
+def rel_rms(a, b):
+    return float((a - b).pow(2).mean().sqrt() / b.pow(2).mean().sqrt())
+
+
+def model_main_path(torch, build):
+    """6c: qwen2.5-14b at full widths and depth, random weights from seed 0
+    on the card: a timed forward of 4 x 2,048 tokens, ``generate`` for 4
+    requests (prompt 16, gen 32), decode through the cache against the
+    forward, one forward and one decode step under sync debug mode
+    "error", and the peak device bytes. Launch counts are zeroed before
+    each counted run and read after it."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import build_model
+
+    cfg = get_arch(MODEL)
+    L = cfg.n_layers
+    per_pass = {"rmsnorm": 2 * L + 1, "flash_attention": L}
+    out = {"config": MODEL, "n_layers": L}
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    model = build_model(cfg, seed=0)
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t0
+    out["n_params"] = model.n_params()
+    out["weight_bytes"] = torch.cuda.memory_allocated() - before
+    log(f"  {MODEL}: {out['n_params'] / 1e9:.3f} B parameters, "
+        f"{out['weight_bytes'] / 1e9:.2f} GB, drawn in {out['init_s']:.2f} s")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    totals = {name: 0 for name in build.LAUNCHES}
+
+    peaks = {}
+
+    def counted(label, fn, expect):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        build.reset_launches()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peaks[label] = torch.cuda.max_memory_allocated()
+        launches = dict(build.LAUNCHES)
+        want = {name: expect.get(name, 0) for name in launches}
+        need(launches == want, f"{label}: launches {launches}, expected "
+             f"{want}")
+        for name, v in launches.items():
+            totals[name] += v
+        return res, wall
+
+    tokens = torch.randint(0, cfg.vocab, (FWD_B, FWD_S), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    fwd = []
+    for i in range(2):                       # the first warms cuBLAS up
+        logits, wall = counted(f"forward {i}", lambda: model.forward(tokens),
+                               per_pass)
+        need(logits.shape == (FWD_B, FWD_S, cfg.vocab)
+             and logits.dtype == torch.bfloat16, f"forward logits "
+             f"{tuple(logits.shape)} {logits.dtype}")
+        need(bool(torch.isfinite(logits).all()), "forward logits not finite")
+        del logits
+        fwd.append(wall)
+        log(f"  forward {FWD_B} x {FWD_S}: {wall * 1e3:.1f} ms "
+            f"({FWD_B * FWD_S / wall:.0f} tokens/s)")
+    out["forward_s"] = fwd
+
+    prompt = torch.randint(0, cfg.vocab, (SERVE_B, SERVE_P), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    steps = SERVE_P + SERVE_G - 1
+    serve = []
+    for i in range(2):
+        toks, wall = counted(
+            f"generate {i}", lambda: generate(model, prompt, SERVE_G),
+            {"rmsnorm": steps * per_pass["rmsnorm"]})
+        need(toks.shape == (SERVE_B, SERVE_G) and toks.dtype == torch.int32,
+             f"generated {tuple(toks.shape)} {toks.dtype}")
+        host = toks.cpu()
+        need(bool(((host >= 0) & (host < cfg.vocab)).all()),
+             "generated token ids out of range")
+        serve.append({"wall_s": wall, "ms_per_step": wall / steps * 1e3,
+                      "tokens_per_s": SERVE_B * SERVE_G / wall})
+        log(f"  generate {SERVE_B} requests (prompt {SERVE_P}, gen "
+            f"{SERVE_G}, {steps} steps): {wall:.3f} s, "
+            f"{wall / steps * 1e3:.2f} ms/step, "
+            f"{SERVE_B * SERVE_G / wall:.1f} tokens/s; sample "
+            f"{host[0, :8].tolist()}")
+    out["serve"] = serve
+    out["serve_tokens"] = host.tolist()
+
+    out["peak_bytes"] = peaks
+    log("  peak device memory: " + ", ".join(
+        f"{k} {v / 1e9:.2f} GB" for k, v in peaks.items()))
+
+    # decode through the cache against the forward, position by position,
+    # both against the f32 reference
+    toks2 = torch.randint(0, cfg.vocab, (CHECK_B, CHECK_S), generator=gen,
+                          device="cuda", dtype=torch.int32)
+    full = model.forward(toks2).float()
+    cache = model.init_cache(CHECK_B, CHECK_S)
+    dec = torch.empty_like(full)
+    for t in range(CHECK_S):
+        logits, cache = model.decode_step(cache, toks2[:, t:t + 1], t)
+        dec[:, t] = logits[:, 0].float()
+    ref = f32_reference_forward(torch, model, toks2)
+    e_fwd, e_dec, e_dvf = rel_rms(full, ref), rel_rms(dec, ref), rel_rms(dec, full)
+    per_pos = ((dec - full).pow(2).mean((0, 2)).sqrt()
+               / full.pow(2).mean((0, 2)).sqrt())
+    controls = {}
+    for name, keep in (("no causal mask", lambda i, j: (i >= j) | (i < j)),
+                       ("KV tile 0 dropped past row 63",
+                        lambda i, j: (i >= j) & ((i < 64) | (j >= 64)))):
+        with Swap(flash_attention=masked_attention(torch, keep)):
+            controls[name] = rel_rms(model.forward(toks2).float(), full)
+    bound = DECODE_VS_FORWARD * e_fwd
+    out["decode_vs_forward"] = {
+        "forward_vs_f32": e_fwd, "decode_vs_f32": e_dec,
+        "decode_vs_forward": e_dvf, "bound": bound,
+        "max_abs": float((dec - full).abs().max()),
+        "logit_rms": float(full.pow(2).mean().sqrt()),
+        "worst_position": float(per_pos.max()),
+        "controls_vs_forward": controls}
+    log(f"  decode vs forward, B={CHECK_B} x S={CHECK_S}, relative RMS: "
+        f"forward vs f32 {e_fwd:.5f}, decode vs f32 {e_dec:.5f}, decode vs "
+        f"forward {e_dvf:.5f} (bound {bound:.5f}; worst position "
+        f"{float(per_pos.max()):.5f}; max |diff| "
+        f"{out['decode_vs_forward']['max_abs']:.4f}); controls "
+        + ", ".join(f"{k} {v:.4f}" for k, v in controls.items()))
+    need(e_fwd <= FORWARD_VS_F32_MAX, f"the bf16 forward is {e_fwd} from "
+         f"the f32 reference (> {FORWARD_VS_F32_MAX})")
+    need(e_dec <= DECODE_VS_F32 * e_fwd, f"decode is {e_dec} from the f32 "
+         f"reference, more than {DECODE_VS_F32}x the forward's {e_fwd}")
+    need(e_dvf <= bound and float(per_pos.max()) <= bound,
+         f"decode disagrees with the forward: {e_dvf} over all positions, "
+         f"{float(per_pos.max())} at the worst, bound {bound}")
+    for name, v in controls.items():
+        need(v > bound, f"control '{name}' ({v}) is inside the "
+             f"decode-vs-forward bound {bound}: the check is not tight")
+    del full, dec, cache, ref
+
+    # no host sync inside one decode step or one forward
+    cache = model.init_cache(CHECK_B, CHECK_S)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        model.decode_step(cache, toks2[:, :1], 0)
+        model.forward(toks2)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    log("  one decode step and one forward ran under sync debug mode "
+        "'error': no host sync")
+    out["profile"] = model_profile(torch, model, tokens, prompt, {
+        "forward": min(fwd), "decode_step": min(
+            r["ms_per_step"] for r in serve) / 1e3})
+    del model, cache
+    torch.cuda.empty_cache()
+    return totals, out
+
+
+def model_profile(torch, model, tokens, prompt, walls, top=8):
+    """Device time by kernel for one forward and one decode step
+    (``torch.profiler``), and the device's busy share of the unprofiled
+    wall time ``walls[label]`` (seconds) of the same work; ``None`` where
+    the profiler records no device time on this machine."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {}
+    cache = model.init_cache(SERVE_B, SERVE_P + SERVE_G)
+    for label, fn in (
+            ("forward", lambda: model.forward(tokens)),
+            ("decode_step", lambda: model.decode_step(
+                cache, prompt[:, :1], SERVE_P))):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        # device-side kernel and copy records only; "Command Buffer Full"
+        # marks a full launch queue, not device work
+        rows = sorted(
+            ((e.self_device_time_total, e.key, e.count)
+             for e in prof.key_averages()
+             if getattr(e, "device_type", None) == DeviceType.CUDA
+             and e.self_device_time_total > 0
+             and e.key != "Command Buffer Full"), reverse=True)
+        if not rows:
+            out[label] = None
+            log(f"  profile {label}: no device time recorded")
+            continue
+        busy = sum(r[0] for r in rows) / 1e3
+        wall = walls[label] * 1e3
+        out[label] = {
+            "device_busy_ms": busy, "wall_ms": wall,
+            "idle_share": max(0.0, 1 - busy / wall),
+            "launches": sum(r[2] for r in rows),
+            "top": [{"name": k[:90], "device_ms": us / 1e3, "count": c}
+                    for us, k, c in rows[:top]]}
+        log(f"  profile {label}: device busy {busy:.2f} ms of {wall:.2f} ms "
+            f"unprofiled wall (idle {out[label]['idle_share']:.1%}), "
+            f"{out[label]['launches']} device records")
+        for us, k, c in rows[:top]:
+            log(f"    {us / 1e3:9.3f} ms  x{c:<5} {k[:80]}")
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--json", type=Path, default=None,
@@ -873,10 +1343,27 @@ def main(argv=None) -> int:
     kernels.append(row)
     del level2_table
     build.reset_launches()
+    torch.cuda.empty_cache()
+
+    # ---- 6. the model zoo's dense decoder ----------------------------------
+    log(f"[6a] rmsnorm and flash attention vs plain versions at {MODEL} "
+        "widths")
+    rows, extra["model_kernels"] = model_kernel_checks(torch)
+    kernels += rows
+    build.reset_launches()
+    log("[6b] card port vs CPU port on reduced qwen2.5-14b, smollm-135m, "
+        "stablelm-1.6b")
+    extra["model_card_vs_cpu"] = model_card_vs_cpu(torch)
+    build.reset_launches()
+    log(f"[6c] main path: {MODEL} at full widths and depth")
+    model_totals, extra["model_main_path"] = model_main_path(torch, build)
+    for name, v in model_totals.items():
+        totals[name] += v
     for row in kernels:
         row["launches"] = totals[row["name"]]
         need(row["launches"] > 0,
              f"{row['name']} never launched on the main path")
+    need(len(kernels) == 11, f"{len(kernels)} kernel rows, expected 11")
 
     if args.json is not None:
         args.json.parent.mkdir(parents=True, exist_ok=True)

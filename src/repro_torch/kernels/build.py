@@ -40,11 +40,14 @@ LAUNCHES: Dict[str, int] = {
     "canonical_refine": 0,
     "gather_rows": 0,
     "canonical_check_tiles": 0,
+    "rmsnorm": 0,
+    "flash_attention": 0,
 }
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_F = ctypes.c_float
 #: C entry point -> argument types (every entry returns cudaGetLastError()).
 _SIGNATURES = {
     "repro_canonical_check": [_P, _P, _P, _P, _L, _I, _L, _L, _P, _P],
@@ -59,6 +62,9 @@ _SIGNATURES = {
     "repro_gather_rows": [_P, _L, _L, _P, _L, _I, _P, _P],
     "repro_canonical_check_tiles": [_P, _P, _P, _P, _P, _L, _I, _L, _L, _P,
                                     _P],
+    "repro_rmsnorm": [_P, _P, _P, _L, _I, _F, _I, _I, _P],
+    "repro_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I,
+                              _I, _P],
 }
 
 _LIB: Optional[ctypes.CDLL] = None

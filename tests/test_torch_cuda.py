@@ -1,7 +1,8 @@
 """The port's CUDA kernels on the card (marker ``cuda``; they skip without
 a CUDA device — a CUDA kernel has no CPU mode). Each kernel is held against
 its plain PyTorch version on the same tensors (integers and booleans:
-exact), and a whole run on the card against the same run on the CPU. This
+exact; the model zoo's float kernels within the tolerances stated at each
+test), and a whole run on the card against the same run on the CPU. This
 file imports neither JAX nor the JAX package, so it runs where only the
 port is installed:
 
@@ -26,6 +27,13 @@ from repro_torch.kernels.canonical_check.canonical_check import (
     expand_canonical_ref,
 )
 from repro_torch.core import explore
+from repro_torch.configs.registry import ARCHS
+from repro_torch.kernels.flash_attention.flash_attention import (
+    flash_attention_cuda,
+    flash_attention_ref,
+)
+from repro_torch.kernels.rmsnorm.rmsnorm import rmsnorm_cuda, rmsnorm_ref
+from repro_torch.models import build_model
 
 pytestmark = pytest.mark.cuda
 
@@ -266,3 +274,116 @@ def test_partitioned_card_run_equals_cpu_run(cuda_device, app):
         np.testing.assert_array_equal(gpu.embeddings[size], emb)
     for name in ("gather_rows", "canonical_check_tiles"):
         assert build.LAUNCHES[name] > before[name], name
+
+
+# ---------------------------------------------------------------------------
+# model zoo: RMSNorm and flash attention (qwen2.5-14b widths: d_model 5,120,
+# 40 heads over 8 KV heads of 128; smollm-135m: 9 over 3 of 64)
+# ---------------------------------------------------------------------------
+
+MODEL_DTYPES = [torch.float32, torch.bfloat16]
+
+
+@pytest.mark.parametrize("dtype", MODEL_DTYPES)
+@pytest.mark.parametrize("rows,d", [(8192, 5120), (4, 5120), (7, 100)])
+def test_rmsnorm_kernel_matches_plain_version(cuda_device, rows, d, dtype):
+    """Kernel and plain version both compute in f32 and round once: f32
+    1e-5 (summation order), bf16 one rounding step (relative 2^-7). (7, 100)
+    takes the scalar path (D % 8 != 0)."""
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    x = torch.randn((rows, d), generator=g, device=cuda_device).to(dtype)
+    scale = (1 + 0.1 * torch.randn((d,), generator=g,
+                                   device=cuda_device)).to(dtype)
+    before = build.LAUNCHES["rmsnorm"]
+    got = rmsnorm_cuda(x, scale)
+    want = rmsnorm_ref(x, scale)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["rmsnorm"] == before + 1
+    assert got.dtype == dtype and got.shape == x.shape
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=1e-6, rtol=1e-5)
+    else:
+        torch.testing.assert_close(got.float(), want.float(), atol=0,
+                                   rtol=2**-7)
+
+
+@pytest.mark.parametrize("dtype", MODEL_DTYPES)
+@pytest.mark.parametrize("b,sq,sk,h,kv,d,causal", [
+    (4, 2048, 2048, 40, 8, 128, True),     # the qwen2.5-14b forward
+    (2, 2048, 2048, 9, 3, 64, True),       # smollm-135m widths
+    (2, 200, 200, 40, 8, 128, True),       # ragged S
+    (1, 77, 300, 4, 2, 256, True),         # Sq != Sk, start-aligned
+    (2, 64, 96, 4, 4, 16, False),          # full attention, reduced widths
+])
+def test_flash_kernel_matches_plain_version(cuda_device, b, sq, sk, h, kv, d,
+                                            causal, dtype):
+    """Both compute in f32 and round once; the JAX package's own kernel-test
+    bounds: f32 2e-5 (summation order; TF32 off for the plain version's
+    matmuls), bf16 2e-2."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    q = torch.randn((b, sq, h, d), generator=g, device=cuda_device).to(dtype)
+    k = torch.randn((b, sk, kv, d), generator=g, device=cuda_device).to(dtype)
+    v = torch.randn((b, sk, kv, d), generator=g, device=cuda_device).to(dtype)
+    before = build.LAUNCHES["flash_attention"]
+    got = flash_attention_cuda(q, k, v, causal)
+    want = flash_attention_ref(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["flash_attention"] == before + 1
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def test_flash_kernel_reads_strided_inputs(cuda_device):
+    """q, k and v as views of one fused (B, S, H + 2 KV, D) projection."""
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    qkv = torch.randn((2, 130, 12, 64), generator=g, device=cuda_device)
+    q, k, v = qkv[:, :, :8], qkv[:, :, 8:10], qkv[:, :, 10:]
+    assert not q.is_contiguous()
+    torch.testing.assert_close(flash_attention_cuda(q, k, v),
+                               flash_attention_ref(q, k, v),
+                               atol=2e-5, rtol=2e-5)
+
+
+def test_model_kernel_wrappers_raise_on_what_they_do_not_take(cuda_device):
+    x = torch.ones((4, 64), device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(TypeError):        # scale of another type
+        rmsnorm_cuda(x, torch.ones(64, device=cuda_device))
+    with pytest.raises(TypeError):        # fp16 is not a kernel type
+        rmsnorm_cuda(x.half(), torch.ones(64, device=cuda_device).half())
+    q = torch.ones((1, 8, 4, 12), device=cuda_device)
+    with pytest.raises(ValueError):       # head dim not a multiple of 8
+        flash_attention_cuda(q, q[:, :, :2], q[:, :, :2])
+    q = torch.ones((1, 8, 6, 16), device=cuda_device)
+    with pytest.raises(ValueError):       # 6 heads over 4 KV heads
+        flash_attention_cuda(q, q[:, :, :4], q[:, :, :4])
+    q = torch.ones((1, 8, 4, 264), device=cuda_device)
+    with pytest.raises(ValueError):       # head dim above 256
+        flash_attention_cuda(q, q, q)
+
+
+@pytest.mark.parametrize("name", ["qwen2.5-14b", "smollm-135m",
+                                  "stablelm-1.6b"])
+def test_card_model_matches_cpu_model(cuda_device, name):
+    """The reduced model with the same weights on the card and on the CPU:
+    the card's bf16 logits (cuBLAS bf16 matmuls, whose reduced-precision
+    reductions are on by default, and the two kernels) are as close to the
+    CPU's f32 logits as the CPU's own bf16 logits: mean absolute error at
+    most 1.25x, the largest at most 2x (as tests/test_torch_models.py holds
+    the port to the JAX package)."""
+    cfg = ARCHS[name].reduced()
+    cpu = build_model(cfg, device="cpu", seed=5)
+    cpu32 = build_model(cfg, device="cpu", seed=5)
+    cpu32.impl.float()
+    card = build_model(cfg, device="cpu", seed=5).to(cuda_device)
+    tokens = torch.randint(0, cfg.vocab, (2, 24),
+                           generator=torch.Generator().manual_seed(6),
+                           dtype=torch.int32)
+    before = dict(build.LAUNCHES)
+    ref = cpu32.forward(tokens)
+    got = card.forward(tokens.to(cuda_device)).float().cpu()
+    ec, eb = (got - ref).abs(), (cpu.forward(tokens).float() - ref).abs()
+    assert ec.mean() <= 1.25 * eb.mean(), (ec.mean(), eb.mean())
+    assert ec.max() <= 2 * eb.max(), (ec.max(), eb.max())
+    assert build.LAUNCHES["flash_attention"] == before["flash_attention"] + 4
+    assert build.LAUNCHES["rmsnorm"] == before["rmsnorm"] + 9

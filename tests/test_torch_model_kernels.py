@@ -1,0 +1,181 @@
+"""The model zoo's configs and kernels in the port against the JAX package,
+on the CPU: the port's own copy of the configs equals ``repro.configs``
+field by field, and the plain versions of the RMSNorm and flash-attention
+kernels (what their wrappers run on a CPU tensor) equal the reference's
+kernel (``rmsnorm(..., interpret=True)``) and oracle
+(``flash_attention/ref.py:attention_ref`` with the GQA mapping of
+``ops.py``) on the same inputs, made with numpy from a seed.
+
+Tolerances: f32 1e-5 (rmsnorm) and 2e-5 (attention, the JAX package's own
+kernel-test bound): the same f32 arithmetic summed in another order. bf16:
+both sides compute in f32 and round once, so they differ by at most one
+bf16 rounding step (relative 2^-7) for rmsnorm, and by the JAX package's
+own 2e-2 for attention."""
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import torch_parity  # noqa: F401  (one torch thread per test process)
+from repro.configs import base as jbase
+from repro.configs.registry import ARCHS as JARCHS
+from repro.kernels.flash_attention.ref import attention_ref
+from repro.kernels.rmsnorm import rmsnorm as jrmsnorm
+from repro.models.layers import rmsnorm as jrmsnorm_model
+from repro_torch import configs
+from repro_torch.configs import base as tbase
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention.flash_attention import (
+    flash_attention_cuda, flash_attention_ref,
+)
+from repro_torch.kernels.rmsnorm import rmsnorm
+from repro_torch.kernels.rmsnorm.rmsnorm import rmsnorm_cuda, rmsnorm_ref
+
+JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _both(a, dtype):
+    """The same numpy values as a JAX array and a torch tensor of
+    ``dtype`` (both round f32 to bf16 to nearest even)."""
+    return jnp.asarray(a).astype(JDT[dtype]), torch.from_numpy(a).to(TDT[dtype])
+
+
+def _f32(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x, np.float32)
+
+
+# ---------------------------------------------------------------------------
+# configs
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name", sorted(JARCHS))
+def test_configs_equal_reference(name):
+    j, t = JARCHS[name], configs.get_arch(name)
+    assert dataclasses.asdict(t) == dataclasses.asdict(j)
+    assert dataclasses.asdict(t.reduced()) == dataclasses.asdict(j.reduced())
+    assert (t.head_dim, t.is_subquadratic, t.has_decoder) == (
+        j.head_dim, j.is_subquadratic, j.has_decoder)
+    module = name.replace(".", "_").replace("-", "_")
+    port_mod = __import__(f"repro_torch.configs.{module}", fromlist=["CONFIG"])
+    assert port_mod.CONFIG == t
+
+
+def test_shapes_and_runnable_cells_equal_reference():
+    assert [dataclasses.asdict(s) for s in tbase.SHAPES] == [
+        dataclasses.asdict(s) for s in jbase.SHAPES]
+    assert [f.name for f in dataclasses.fields(tbase.ArchConfig)] == [
+        f.name for f in dataclasses.fields(jbase.ArchConfig)]
+    for name in sorted(JARCHS):
+        for js, ts in zip(jbase.SHAPES, tbase.SHAPES):
+            assert tbase.cell_is_runnable(configs.ARCHS[name], ts) == \
+                jbase.cell_is_runnable(JARCHS[name], js)
+            assert ts.is_decode == js.is_decode
+    with pytest.raises(KeyError):
+        configs.get_arch("no-such-arch")
+
+
+# ---------------------------------------------------------------------------
+# rmsnorm
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(4, 256, 512), (2, 100, 64), (1, 7, 128),
+                                   (3, 5, 5120)])
+def test_rmsnorm_plain_version_matches_reference_kernel(shape, dtype):
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal(shape).astype(np.float32)
+    s = (1.0 + 0.1 * rng.standard_normal(shape[-1:])).astype(np.float32)
+    (xj, xt), (sj, st) = _both(x, dtype), _both(s, dtype)
+    want = _f32(jrmsnorm(xj, sj, interpret=True))
+    got = rmsnorm(xt, st)
+    assert got.shape == xt.shape and got.dtype == xt.dtype
+    if dtype == "float32":
+        np.testing.assert_allclose(_f32(got), want, atol=1e-6, rtol=1e-5)
+    else:
+        np.testing.assert_allclose(_f32(got), want, atol=0, rtol=2**-7)
+    # the wrapper's CPU route is the plain version
+    np.testing.assert_array_equal(
+        _f32(rmsnorm_cuda(xt.reshape(-1, shape[-1]), st)),
+        _f32(rmsnorm_ref(xt.reshape(-1, shape[-1]), st)))
+
+
+def test_rmsnorm_equals_model_stack_at_unit_scale():
+    """The reference's model-stack rmsnorm rounds before the scale: with the
+    scale at 1 (every norm at init) the two are equal bit for bit."""
+    x = np.random.default_rng(1).standard_normal((6, 96)).astype(np.float32)
+    (xj, xt), (sj, st) = _both(x, "bfloat16"), _both(np.ones(96, np.float32),
+                                                      "bfloat16")
+    np.testing.assert_array_equal(_f32(rmsnorm(xt, st)),
+                                  _f32(jrmsnorm_model(xj, sj)))
+
+
+# ---------------------------------------------------------------------------
+# flash attention
+# ---------------------------------------------------------------------------
+
+def _bhsd(a):
+    """(B, S, H, D) -> the reference kernel's (B*H, S, D)."""
+    b, s, h, d = a.shape
+    return a.transpose(0, 2, 1, 3).reshape(b * h, s, d)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize(
+    "bh,sq,sk,d,causal",
+    [
+        (2, 128, 128, 64, True),
+        (2, 256, 256, 64, True),
+        (1, 128, 256, 128, False),
+        (3, 256, 256, 128, True),
+        (2, 200, 200, 16, True),      # ragged: no multiple of any tile
+        (1, 77, 130, 40, True),       # Sq != Sk, start-aligned mask
+    ],
+)
+def test_flash_plain_version_matches_reference_oracle(bh, sq, sk, d, causal,
+                                                      dtype):
+    rng = np.random.default_rng(0)
+    # the reference's (B*H, S, D) as one batch of B*H heads, H = KV
+    q = rng.standard_normal((1, sq, bh, d)).astype(np.float32)
+    k = rng.standard_normal((1, sk, bh, d)).astype(np.float32)
+    v = rng.standard_normal((1, sk, bh, d)).astype(np.float32)
+    (qj, qt), (kj, kt), (vj, vt) = (_both(a, dtype) for a in (q, k, v))
+    want = _f32(attention_ref(_bhsd(qj), _bhsd(kj), _bhsd(vj), causal=causal))
+    got = flash_attention(qt, kt, vt, causal=causal)
+    assert got.shape == qt.shape and got.dtype == qt.dtype
+    tol = 2e-2 if dtype == "bfloat16" else 2e-5
+    np.testing.assert_allclose(_bhsd(_f32(got)), want, atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("b,s,h,kv,d", [(2, 128, 8, 2, 64), (1, 50, 9, 3, 64),
+                                        (2, 33, 5, 1, 128)])
+def test_flash_gqa_mapping_matches_reference(b, s, h, kv, d):
+    """Head h reads KV head h // (H / KV): the reference wrapper's
+    ``jnp.repeat`` of the KV heads, rebuilt around its oracle."""
+    rng = np.random.default_rng(1)
+    q = rng.standard_normal((b, s, h, d)).astype(np.float32)
+    k = rng.standard_normal((b, s, kv, d)).astype(np.float32)
+    v = rng.standard_normal((b, s, kv, d)).astype(np.float32)
+    kk = jnp.repeat(jnp.asarray(k), h // kv, axis=2)
+    vv = jnp.repeat(jnp.asarray(v), h // kv, axis=2)
+    want = attention_ref(_bhsd(jnp.asarray(q)), _bhsd(kk), _bhsd(vv))
+    want = np.asarray(want).reshape(b, h, s, d).transpose(0, 2, 1, 3)
+    got = flash_attention_cuda(*(torch.from_numpy(a) for a in (q, k, v)))
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-5, rtol=2e-5)
+    np.testing.assert_array_equal(
+        got.numpy(),
+        flash_attention_ref(*(torch.from_numpy(a) for a in (q, k, v))).numpy())
+
+
+def test_wrappers_refuse_other_devices():
+    """A tensor neither on the CPU nor on a CUDA device has no route."""
+    x = torch.empty((4, 8), device="meta")
+    with pytest.raises(ValueError, match="no kernel route"):
+        rmsnorm_cuda(x, torch.empty(8, device="meta"))
+    q = torch.empty((1, 4, 2, 8), device="meta")
+    with pytest.raises(ValueError, match="no kernel route"):
+        flash_attention_cuda(q, q, q)
