@@ -90,20 +90,23 @@ MODEL = "qwen2.5-14b"          # phase 6's model, full widths and depth
 FWD_B, FWD_S = 4, 2048         # the timed forward: 4 prompts x 2,048 tokens
 SERVE_B, SERVE_P, SERVE_G = 4, 16, 32   # launch/serve.py's defaults
 CHECK_B, CHECK_S = 2, 256      # decode through the cache vs the forward
-#: decode vs forward at full depth, as relative RMS errors of the logits.
-#: Only bf16 rounding separates serving from the forward (decode rounds its
-#: softmax weights to bf16 where the kernel keeps f32, and the matmuls run
-#: at other shapes), so both are held to an f32 forward of the same
-#: weights without kernels (the reference): the decode may be at most
-#: 1.5x as far from it as the bf16 forward is, and decode and forward at
-#: most 2x that distance apart, over all positions and at each position
-#: (two draws of the same noise: about 1.4x if independent). The bf16
-#: forward itself must be within 10 % of the reference. A forward without
-#: the causal mask, or with one KV tile dropped, must land outside the
-#: decode-vs-forward bound.
-DECODE_VS_F32 = 1.5
-DECODE_VS_FORWARD = 2.0
-FORWARD_VS_F32_MAX = 0.10
+#: decode vs forward at full depth, as relative RMS errors of the logits
+#: (RMS of the difference over RMS of the logits). Only bf16 rounding over
+#: 48 layers separates serving from the forward: decode rounds its softmax
+#: weights to bf16 where the kernel keeps f32, and the matmuls run at other
+#: shapes. Both are also held to an f32 forward of the same weights through
+#: the kernels' plain versions (the reference; it runs the port's own block
+#: code, so it checks the two kernels and bf16 precision, while RoPE, the
+#: projections and the MLP are held to the JAX package by
+#: tests/test_torch_models.py at reduced widths). Fixed bounds, about 2.5x
+#: the readings on an H100 (forward and decode 0.0193 and 0.0195 from the
+#: reference, decode vs forward 0.0228 over all positions and 0.0273 at the
+#: worst), and 20x below the controls: a forward without the causal mask,
+#: or with KV tile 0 dropped past row 63, reads 1.22-1.38 and must land
+#: outside the decode-vs-forward bound.
+FORWARD_VS_F32_MAX = 0.05
+DECODE_VS_F32_MAX = 0.05
+DECODE_VS_FORWARD_MAX = 0.06
 
 
 class SmokeFailure(Exception):
@@ -903,9 +906,11 @@ def model_kernel_checks(torch, reps=10):
             want = flash_attention_ref(q, k, v)
             torch.cuda.synchronize()
             diff = (got.float() - want.float()).abs()
-            # the JAX package's kernel-test bounds: f32 2e-5, bf16 2e-2
-            tol = 2e-5 if dtype == torch.float32 else 2e-2
-            need(bool((diff <= tol + tol * want.float().abs()).all()),
+            # f32: the JAX package's kernel-test bound 2e-5; bf16: both
+            # round once from f32, so at most one bf16 step (2^-7 relative)
+            lim = (2e-5 + 2e-5 * want.float().abs() if dtype == torch.float32
+                   else 1e-5 + 2**-7 * want.float().abs())
+            need(bool((diff <= lim).all()),
                  f"flash_attention {dtype} {what} differs from its plain "
                  f"version by {float(diff.max())}")
             del want
@@ -956,7 +961,7 @@ def model_card_vs_cpu(torch, steps=8):
         cfg = get_arch(name).reduced()
         cpu = build_model(cfg, device="cpu", seed=5)
         cpu32 = build_model(cfg, device="cpu", seed=5)
-        cpu32.impl.float()
+        cpu32.float()
         card = build_model(cfg, device="cpu", seed=5).to("cuda")
         tokens = torch.randint(0, cfg.vocab, (2, 32), dtype=torch.int32,
                                generator=torch.Generator().manual_seed(6))
@@ -992,20 +997,34 @@ class Swap:
     """Within the block, the dense decoder's kernel calls (the names
     ``flash_attention`` and ``_rmsnorm_kernel`` of ``models/layers.py``) go
     to other functions: the plain versions for the f32 reference, wrong
-    variants for the controls."""
+    variants for the controls. A swapped kernel must not launch inside the
+    block; if ``models/layers.py`` reached it by another name, the
+    reference would be the model itself and the check would prove
+    nothing."""
+
+    KERNEL = {"flash_attention": "flash_attention",
+              "_rmsnorm_kernel": "rmsnorm"}
 
     def __init__(self, **fns):
+        from repro_torch.kernels import build
         from repro_torch.models import layers
-        self.layers, self.fns = layers, fns
+        self.build, self.layers, self.fns = build, layers, fns
 
     def __enter__(self):
         self.orig = {k: getattr(self.layers, k) for k in self.fns}
+        self.before = {self.KERNEL[k]: self.build.LAUNCHES[self.KERNEL[k]]
+                       for k in self.fns}
         for k, fn in self.fns.items():
             setattr(self.layers, k, fn)
 
-    def __exit__(self, *exc):
+    def __exit__(self, exc_type, *exc):
         for k, fn in self.orig.items():
             setattr(self.layers, k, fn)
+        if exc_type is None:
+            for name, n in self.before.items():
+                got = self.build.LAUNCHES[name] - n
+                need(got == 0, f"{name} launched {got} times while swapped "
+                     "for another function")
 
 
 def f32_reference_forward(torch, model, tokens):
@@ -1019,18 +1038,18 @@ def f32_reference_forward(torch, model, tokens):
     from repro_torch.kernels.rmsnorm.rmsnorm import rmsnorm_ref
     from repro_torch.models import lm
 
-    imp, cfg = model.impl, model.cfg
+    cfg = model.cfg
     b, s = tokens.shape
     with torch.inference_mode(), Swap(flash_attention=flash_attention_ref,
                                       _rmsnorm_kernel=rmsnorm_ref):
-        x = imp.embed.index_select(0, tokens.reshape(-1)).float()
+        x = model.embed.index_select(0, tokens.reshape(-1)).float()
         x = x.reshape(b, s, -1)
         pos = torch.arange(s, dtype=torch.int32, device=x.device)[None]
-        for p in imp.layers:
+        for p in model.layers:
             x = lm._block_fwd(cfg, copy.deepcopy(p).float(), x,
                               pos.expand(b, s))
-        x = rmsnorm_ref(x, imp.ln_f.float(), cfg.norm_eps)
-        return x @ imp.unembed.float()
+        x = rmsnorm_ref(x, model.ln_f.float(), cfg.norm_eps)
+        return x @ model.unembed.float()
 
 
 def masked_attention(torch, keep):
@@ -1163,7 +1182,7 @@ def model_main_path(torch, build):
                         lambda i, j: (i >= j) & ((i < 64) | (j >= 64)))):
         with Swap(flash_attention=masked_attention(torch, keep)):
             controls[name] = rel_rms(model.forward(toks2).float(), full)
-    bound = DECODE_VS_FORWARD * e_fwd
+    bound = DECODE_VS_FORWARD_MAX
     out["decode_vs_forward"] = {
         "forward_vs_f32": e_fwd, "decode_vs_f32": e_dec,
         "decode_vs_forward": e_dvf, "bound": bound,
@@ -1179,8 +1198,8 @@ def model_main_path(torch, build):
         + ", ".join(f"{k} {v:.4f}" for k, v in controls.items()))
     need(e_fwd <= FORWARD_VS_F32_MAX, f"the bf16 forward is {e_fwd} from "
          f"the f32 reference (> {FORWARD_VS_F32_MAX})")
-    need(e_dec <= DECODE_VS_F32 * e_fwd, f"decode is {e_dec} from the f32 "
-         f"reference, more than {DECODE_VS_F32}x the forward's {e_fwd}")
+    need(e_dec <= DECODE_VS_F32_MAX, f"decode is {e_dec} from the f32 "
+         f"reference (> {DECODE_VS_F32_MAX})")
     need(e_dvf <= bound and float(per_pos.max()) <= bound,
          f"decode disagrees with the forward: {e_dvf} over all positions, "
          f"{float(per_pos.max())} at the worst, bound {bound}")

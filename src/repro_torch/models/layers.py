@@ -5,8 +5,8 @@ under the JAX package's names (``wq.w``, ``wq.b``, ``w_gate.w``, ...) in
 its ``(d_in, d_out)`` layout, used as ``x @ w``, so carrying weights across
 is a copy. bf16 parameters and activations, f32 reductions.
 
-On a CUDA tensor :func:`rmsnorm` launches the RMSNorm kernel and causal
-:func:`blocked_attention` the flash-attention kernel; on a CPU tensor both
+On a CUDA tensor :func:`rmsnorm` launches the RMSNorm kernel and
+:func:`gqa_attention` the flash-attention kernel; on a CPU tensor both
 take their kernels' plain versions. The sharding helpers of the reference
 (``constrain``, ``activation_sharding``, ``spec_for``,
 ``build_param_specs``, ``LAYOUT``) have no meaning on one card and are not
@@ -137,27 +137,15 @@ def _proj(x, p: Dense):
     return y
 
 
-def _sdpa(q, k, v, q_pos, k_pos, scale, causal, window):
-    """Dense attention, the reference's jnp arithmetic: f32 scores, softmax
-    weights rounded to q's type. q (B,QB,KV,G,D); k/v (B,S,KV,D). The plain
-    path of the windowed and non-causal attention the dense decoder never
-    runs (CPU only, see :func:`blocked_attention`)."""
-    scores = torch.einsum("bqhgd,bkhd->bhgqk", q.float(), k.float()) * scale
-    mask = q_pos[:, :, None] >= k_pos[:, None, :] if causal else None
-    if window:
-        near = k_pos[:, None, :] > q_pos[:, :, None] - window
-        mask = near if mask is None else (mask & near)
-    if mask is not None:
-        scores = torch.where(mask[:, None, None, :, :], scores,
-                             torch.tensor(-1e30, dtype=scores.dtype,
-                                          device=scores.device))
-    w = torch.softmax(scores, dim=-1).to(q.dtype)
-    return torch.einsum("bhgqk,bkhd->bqhgd", w, v)
+def gqa_attention(cfg: ArchConfig, p: Attention, x, positions):
+    """Full-sequence causal attention. x (B,S,d); positions (B,S) = 0..S-1
+    (the RoPE angles; the kernel's causal mask is 0..S-1 too).
 
-
-def gqa_attention(cfg: ArchConfig, p: Attention, x, positions, *, causal=True,
-                  window=0):
-    """Full-sequence attention. x (B,S,d); positions (B,S) = 0..S-1."""
+    The attention itself is the flash-attention kernel (its plain version
+    on a CPU tensor): scale D^-1/2, KV head h // G read at its strides, and
+    the softmax weights kept in f32 where the reference's ``_sdpa`` rounds
+    them to bf16. The windowed and non-causal attention of the hybrid and
+    encoder families is not ported (ROADMAP.md queue A item 13)."""
     b, s, _ = x.shape
     dh = cfg.head_dim
     q = _proj(x, p.wq).reshape(b, s, cfg.n_heads, dh)
@@ -166,33 +154,8 @@ def gqa_attention(cfg: ArchConfig, p: Attention, x, positions, *, causal=True,
     cos, sin = rope_freqs(positions, dh, cfg.rope_theta)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
-
-    g = cfg.n_heads // cfg.n_kv_heads
-    q = q.reshape(b, s, cfg.n_kv_heads, g, dh)
-    o = blocked_attention(q, k, v, positions, dh ** -0.5, causal, window)
-    o = o.reshape(b, s, cfg.n_heads * dh)
+    o = flash_attention(q, k, v).reshape(b, s, cfg.n_heads * dh)
     return _proj(o, p.wo)
-
-
-def blocked_attention(q, k, v, positions, scale, causal=True, window=0):
-    """q (B,S,KV,G,D); k/v (B,S,KV,D) -> (B,S,KV,G,D).
-
-    Causal attention without a window goes to the flash-attention kernel
-    (its plain version on a CPU tensor), which takes the positions as
-    0..S-1 and the scale as D^-1/2, as :func:`gqa_attention` gives them; it
-    keeps the softmax weights in f32 where the reference's ``_sdpa`` rounds
-    them to bf16. Windowed or non-causal attention (the hybrid and encoder
-    families, not ported) raises on the card and takes ``_sdpa`` on the
-    CPU."""
-    b, s, kv, g, d = q.shape
-    if causal and not window:
-        o = flash_attention(q.reshape(b, s, kv * g, d), k, v, causal=True)
-        return o.reshape(b, s, kv, g, d)
-    if q.device.type != "cpu":
-        raise NotImplementedError(
-            "windowed or non-causal attention (hybrid, encoder) is not ported "
-            "to the card yet (ROADMAP.md queue A item 13)")
-    return _sdpa(q, k, v, positions, positions, scale, causal, window)
 
 
 def gqa_decode(cfg: ArchConfig, p: Attention, x, cache_k, cache_v, pos: int):

@@ -17,7 +17,6 @@ training.
 """
 from __future__ import annotations
 
-import dataclasses
 from typing import Any, Dict, List
 
 import numpy as np
@@ -48,9 +47,9 @@ def _init_block(cfg: ArchConfig, ini: Init) -> Block:
                  L.init_gqa(cfg, ini), L.init_mlp(cfg.d_model, cfg.d_ff, ini))
 
 
-def _block_fwd(cfg: ArchConfig, p: Block, x, positions, window=0):
+def _block_fwd(cfg: ArchConfig, p: Block, x, positions):
     h = L.rmsnorm(x, p.ln1, cfg.norm_eps)
-    x = x + L.gqa_attention(cfg, p.attn, h, positions, window=window)
+    x = x + L.gqa_attention(cfg, p.attn, h, positions)
     h = L.rmsnorm(x, p.ln2, cfg.norm_eps)
     return x + L.mlp(p.mlp, h)
 
@@ -64,19 +63,16 @@ def _block_decode(cfg: ArchConfig, p: Block, x, cache, pos: int):
     return x + L.mlp(p.mlp, h)
 
 
-def _attn_cache_struct(cfg: ArchConfig, b, s, device=None):
-    dh = cfg.head_dim
-    return {
-        "k": torch.zeros((b, s, cfg.n_kv_heads, dh), dtype=DTYPE, device=device),
-        "v": torch.zeros((b, s, cfg.n_kv_heads, dh), dtype=DTYPE, device=device),
-    }
-
-
 # ---------------------------------------------------------------------------
 # Decoder-only LM (dense)
 # ---------------------------------------------------------------------------
 
 class DecoderLM(nn.Module):
+    """The model that :func:`build_model` and :func:`model_from_numpy`
+    return. It holds its weights, so it takes no ``params`` argument where
+    the reference's functional ``Model`` facade does; ``forward`` and
+    ``decode_step`` run under ``torch.inference_mode``."""
+
     def __init__(self, cfg: ArchConfig, embed, layers: List[Block], ln_f,
                  unembed):
         super().__init__()
@@ -106,6 +102,10 @@ class DecoderLM(nn.Module):
         b, s = tokens.shape
         return self.embed.index_select(0, tokens.reshape(-1)).reshape(b, s, -1)
 
+    def n_params(self) -> int:
+        return sum(p.numel() for p in self.parameters())
+
+    @torch.inference_mode()
     def forward(self, tokens):
         """tokens (B,S) int -> logits (B,S,V) bf16."""
         cfg = self.cfg
@@ -122,12 +122,13 @@ class DecoderLM(nn.Module):
     def init_cache(self, b, s):
         """{"layers": {"k", "v"}} stacked (L, B, S, KV, dh), as the
         reference's; layer i's slice is a view written in place."""
+        cfg = self.cfg
+        shape = (len(self.layers), b, s, cfg.n_kv_heads, cfg.head_dim)
         return {"layers": {
-            name: torch.zeros((len(self.layers),) + t.shape, dtype=t.dtype,
-                              device=self.device)
-            for name, t in _attn_cache_struct(self.cfg, b, s, "meta").items()
-        }}
+            name: torch.zeros(shape, dtype=DTYPE, device=self.device)
+            for name in ("k", "v")}}
 
+    @torch.inference_mode()
     def decode_step(self, cache, token, pos: int):
         """token (B,1) int; ``pos`` a Python int. Returns (logits (B,1,V),
         cache), the cache updated in place."""
@@ -139,38 +140,6 @@ class DecoderLM(nn.Module):
                               {"k": stack["k"][i], "v": stack["v"][i]}, pos)
         x = L.rmsnorm(x, self.ln_f, cfg.norm_eps)
         return x @ self.unembed, cache
-
-
-# ---------------------------------------------------------------------------
-# Facade
-# ---------------------------------------------------------------------------
-
-@dataclasses.dataclass
-class Model:
-    cfg: ArchConfig
-    impl: Any
-
-    @property
-    def device(self) -> torch.device:
-        return self.impl.device
-
-    def forward(self, tokens):
-        with torch.inference_mode():
-            return self.impl.forward(tokens)
-
-    def decode_step(self, cache, token, pos: int):
-        with torch.inference_mode():
-            return self.impl.decode_step(cache, token, pos)
-
-    def init_cache(self, b, s):
-        return self.impl.init_cache(b, s)
-
-    def to(self, device) -> "Model":
-        self.impl.to(device)
-        return self
-
-    def n_params(self) -> int:
-        return sum(p.numel() for p in self.impl.parameters())
 
 
 def _check_ported(cfg: ArchConfig) -> None:
@@ -185,14 +154,14 @@ def _check_ported(cfg: ArchConfig) -> None:
             "MLA attention is not ported yet (ROADMAP.md queue A item 13)")
 
 
-def build_model(cfg: ArchConfig, device=None, seed: int = 0) -> Model:
+def build_model(cfg: ArchConfig, device=None, seed: int = 0) -> DecoderLM:
     """The dense decoder with random weights drawn on ``device`` (the card
     unless the caller passes ``device="cpu"``) from
     ``torch.Generator(device).manual_seed(seed)``."""
     _check_ported(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    return Model(cfg=cfg, impl=DecoderLM.init(cfg, gen))
+    return DecoderLM.init(cfg, gen)
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -208,7 +177,7 @@ def _tensor(a, device) -> torch.Tensor:
 
 
 def model_from_numpy(cfg: ArchConfig, tree: Dict[str, Any],
-                     device=None) -> Model:
+                     device=None) -> DecoderLM:
     """The port's model holding the weights of the reference's parameter
     pytree ``tree`` (numpy arrays, e.g. ``jax.tree.map(np.asarray,
     params)``): the stacked ``layers`` leaves are split along axis 0."""
@@ -230,6 +199,5 @@ def model_from_numpy(cfg: ArchConfig, tree: Dict[str, Any],
             L.MLP(dense(m["w_gate"], i), dense(m["w_in"], i),
                   dense(m["w_out"], i)),
         ))
-    impl = DecoderLM(cfg, _tensor(tree["embed"], dev), layers,
+    return DecoderLM(cfg, _tensor(tree["embed"], dev), layers,
                      _tensor(tree["ln_f"], dev), _tensor(tree["unembed"], dev))
-    return Model(cfg=cfg, impl=impl)

@@ -374,7 +374,7 @@ def test_card_model_matches_cpu_model(cuda_device, name):
     cfg = ARCHS[name].reduced()
     cpu = build_model(cfg, device="cpu", seed=5)
     cpu32 = build_model(cfg, device="cpu", seed=5)
-    cpu32.impl.float()
+    cpu32.float()
     card = build_model(cfg, device="cpu", seed=5).to(cuda_device)
     tokens = torch.randint(0, cfg.vocab, (2, 24),
                            generator=torch.Generator().manual_seed(6),

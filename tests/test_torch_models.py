@@ -81,7 +81,7 @@ def _tokens(cfg, b, s, seed):
 def test_model_from_numpy_carries_every_weight(pair):
     params, tm = pair.params, pair.tm
     tree = jax.tree.map(np.asarray, params)
-    got = {k: v.float().numpy() for k, v in tm.impl.state_dict().items()}
+    got = {k: v.float().numpy() for k, v in tm.state_dict().items()}
     want = {}
     for k in ("embed", "ln_f", "unembed"):
         want[k] = tree[k]
@@ -93,7 +93,7 @@ def test_model_from_numpy_carries_every_weight(pair):
     assert sorted(got) == sorted(want)
     for k, v in want.items():
         np.testing.assert_array_equal(got[k], np.asarray(v, np.float32), k)
-    assert tm.impl.unembed.dtype == torch.bfloat16
+    assert tm.unembed.dtype == torch.bfloat16
     assert tm.n_params() == sum(x.size for x in jax.tree.leaves(tree))
 
 
@@ -108,17 +108,11 @@ def test_layers_match_reference(pair):
     xj = jnp.asarray(x, jnp.bfloat16)
     xt = torch.from_numpy(x).to(torch.bfloat16)
     lp = jax.tree.map(lambda a: a[0], params["layers"])
-    blk = tm.impl.layers[0]
+    blk = tm.layers[0]
     pos = np.broadcast_to(np.arange(s, dtype=np.int32)[None], (b, s))
 
     want = JL.gqa_attention(cfg, lp["attn"], xj, jnp.asarray(pos))
     got = TL.gqa_attention(tcfg, blk.attn, xt, torch.from_numpy(pos.copy()))
-    np.testing.assert_allclose(_f32(got), _f32(want), atol=TOL, rtol=TOL)
-
-    # windowed attention (not on the dense path): the CPU's _sdpa route
-    want = JL.gqa_attention(cfg, lp["attn"], xj, jnp.asarray(pos), window=4)
-    got = TL.gqa_attention(tcfg, blk.attn, xt, torch.from_numpy(pos.copy()),
-                           window=4)
     np.testing.assert_allclose(_f32(got), _f32(want), atol=TOL, rtol=TOL)
 
     np.testing.assert_allclose(_f32(TL.mlp(blk.mlp, xt)),
@@ -249,26 +243,37 @@ def test_build_model_needs_a_card_unless_cpu_is_asked(monkeypatch):
     # the same seed gives the same weights; init follows the reference's
     # distributions (unit norms, zero biases, N(0, 1/d_in) projections)
     m2 = build_model(cfg, device="cpu", seed=3)
-    for a, b in zip(m.impl.parameters(), m2.impl.parameters()):
+    for a, b in zip(m.parameters(), m2.parameters()):
         assert torch.equal(a, b)
-    blk = m.impl.layers[0]
+    blk = m.layers[0]
     assert torch.equal(blk.ln1, torch.ones_like(blk.ln1))
     w = blk.attn.wq.w.float()
     assert abs(w.std().item() * cfg.d_model ** 0.5 - 1) < 0.1
     q = build_model(ARCHS["qwen2.5-14b"].reduced(), device="cpu")
-    assert torch.equal(q.impl.layers[0].attn.wk.b,
-                       torch.zeros_like(q.impl.layers[0].attn.wk.b))
+    assert torch.equal(q.layers[0].attn.wk.b,
+                       torch.zeros_like(q.layers[0].attn.wk.b))
 
 
-def test_windowed_or_full_attention_raises_off_the_cpu():
-    """Only causal attention without a window has a kernel; the hybrid and
-    encoder paths raise on any device but the CPU instead of falling back."""
-    q = torch.empty((1, 8, 2, 2, 16), device="meta")
-    k = torch.empty((1, 8, 2, 16), device="meta")
-    pos = torch.empty((1, 8), dtype=torch.int32, device="meta")
-    for causal, window in ((True, 4), (False, 0)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TL.blocked_attention(q, k, k, pos, 0.25, causal, window)
+def test_decode_step_writes_only_its_cache_slot():
+    """decode_step(cache, token, pos) writes slot ``pos`` of every layer's
+    k/v in place and nothing else, and runs under inference mode."""
+    cfg = ARCHS["smollm-135m"].reduced()
+    m = build_model(cfg, device="cpu", seed=4)
+    cache = m.init_cache(2, 6)
+    k, v = cache["layers"]["k"], cache["layers"]["v"]
+    assert k.shape == (cfg.n_layers, 2, 6, cfg.n_kv_heads, cfg.head_dim)
+    assert k.dtype == v.dtype == torch.bfloat16
+    tok = torch.tensor([[3], [7]], dtype=torch.int32)
+    for pos in (0, 3):
+        before_k, before_v = k.clone(), v.clone()
+        logits, out = m.decode_step(cache, tok, pos)
+        assert out is cache and out["layers"]["k"] is k
+        assert logits.shape == (2, 1, cfg.vocab) and logits.is_inference()
+        other = [i for i in range(6) if i != pos]
+        assert torch.equal(k[:, :, other], before_k[:, :, other])
+        assert torch.equal(v[:, :, other], before_v[:, :, other])
+        assert (k[:, :, pos] != 0).any() and (v[:, :, pos] != 0).any()
+    assert m.forward(tok).is_inference()
 
 
 def test_serve_cli_runs_on_the_cpu(capsys):
@@ -281,11 +286,11 @@ def test_serve_cli_runs_on_the_cpu(capsys):
 
 def test_decode_and_forward_modules_have_reference_names():
     m = build_model(ARCHS["qwen2.5-14b"].reduced(), device="cpu")
-    names = set(dict(m.impl.named_parameters()))
+    names = set(dict(m.named_parameters()))
     for n in ("embed", "ln_f", "unembed", "layers.0.ln1", "layers.0.ln2",
               "layers.0.attn.wq.w", "layers.0.attn.wq.b", "layers.0.attn.wo.w",
               "layers.0.mlp.w_gate.w", "layers.0.mlp.w_in.w",
               "layers.0.mlp.w_out.w"):
         assert n in names, n
     assert "layers.0.attn.wo.b" not in names
-    assert isinstance(m.impl, lm.DecoderLM) and len(m.impl.layers) == 4
+    assert isinstance(m, lm.DecoderLM) and len(m.layers) == 4
