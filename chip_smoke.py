@@ -39,6 +39,8 @@ Phases, in order; any failure exits non-zero and prints no result:
         128, at smollm-135m's 9 over 3 of 64, and at a ragged S=200), bf16
         and f32, timed beside their plain versions and the library calls
         ``torch.nn.functional.rms_norm`` and ``scaled_dot_product_attention``;
+        bf16 flash attention within the JAX package's 2e-2 and no further
+        from the plain version than 1.5x SDPA's largest error;
      b. the card port against the CPU port on the reduced qwen2.5-14b,
         smollm-135m and stablelm-1.6b (forward and 8 decode steps);
      c. the main path: qwen2.5-14b at its published widths and 48 layers
@@ -51,6 +53,12 @@ Phases, in order; any failure exits non-zero and prints no result:
         controls that must fail the bound; one decode step
         and one forward under sync debug mode "error"; the peak device
         bytes; a profile of one forward and one decode step.
+
+Times are amortised (``time_call``): after a warm-up, one CUDA event pair
+around N back-to-back calls (N >= 20, or enough for 2 ms; one call for the
+slow plain versions), divided by N, the median of 3-5 such windows. Where
+the host's enqueue takes at least 0.8x the event time, the row is marked
+``host_bound`` and also carries the profiler's device time per call.
 
 It prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. ``--json PATH`` also writes the details
@@ -92,18 +100,20 @@ SERVE_B, SERVE_P, SERVE_G = 4, 16, 32   # launch/serve.py's defaults
 CHECK_B, CHECK_S = 2, 256      # decode through the cache vs the forward
 #: decode vs forward at full depth, as relative RMS errors of the logits
 #: (RMS of the difference over RMS of the logits). Only bf16 rounding over
-#: 48 layers separates serving from the forward: decode rounds its softmax
-#: weights to bf16 where the kernel keeps f32, and the matmuls run at other
-#: shapes. Both are also held to an f32 forward of the same weights through
-#: the kernels' plain versions (the reference; it runs the port's own block
-#: code, so it checks the two kernels and bf16 precision, while RoPE, the
-#: projections and the MLP are held to the JAX package by
-#: tests/test_torch_models.py at reduced widths). Fixed bounds, about 2.5x
-#: the readings on an H100 (forward and decode 0.0193 and 0.0195 from the
-#: reference, decode vs forward 0.0228 over all positions and 0.0273 at the
-#: worst), and 20x below the controls: a forward without the causal mask,
-#: or with KV tile 0 dropped past row 63, reads 1.22-1.38 and must land
-#: outside the decode-vs-forward bound.
+#: 48 layers separates serving from the forward: both round the softmax
+#: weights to bf16 (decode in eager PyTorch, the forward in the flash
+#: kernel before its PV product), at other places in the sum, and the
+#: matmuls run at other shapes. Both are also held to an f32 forward of the
+#: same weights through the kernels' plain versions (the reference; it runs
+#: the port's own block code, so it checks the two kernels and bf16
+#: precision, while RoPE, the projections and the MLP are held to the JAX
+#: package by tests/test_torch_models.py at reduced widths). Fixed bounds,
+#: about 2.5x the readings on an H100 with the CUDA-core flash kernel
+#: (forward and decode 0.0193 and 0.0195 from the reference, decode vs
+#: forward 0.0228 over all positions and 0.0273 at the worst), and 20x
+#: below the controls: a forward without the causal mask, or with KV tile 0
+#: dropped past row 63, reads 1.22-1.38 and must land outside the
+#: decode-vs-forward bound.
 FORWARD_VS_F32_MAX = 0.05
 DECODE_VS_F32_MAX = 0.05
 DECODE_VS_FORWARD_MAX = 0.06
@@ -133,22 +143,77 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(torch, fn, reps: int, warmup: int = 2) -> float:
-    """Median milliseconds of ``fn()`` over ``reps`` launches, each timed
-    with CUDA events after ``warmup`` untimed calls."""
+#: a timing window holds at least this many milliseconds of calls
+WINDOW_MS = 2.0
+#: most calls in one window (a 2 ms window of 2 us calls)
+MAX_CALLS = 1000
+#: a call is host-bound when the host's enqueue takes at least this share
+#: of its event time: the card then waits for the host, and the events time
+#: the host
+HOST_BOUND_SHARE = 0.8
+#: timing of the slow plain versions: one call a window, three windows
+PLAIN = {"calls": 1, "windows": 3, "warmup": 1}
+
+
+def time_call(torch, fn, calls: int = 20, windows: int = 5, warmup: int = 2,
+              device: bool = False) -> dict:
+    """Milliseconds per call of ``fn()``, amortised: after ``warmup``
+    untimed calls, one CUDA event pair around N back-to-back calls, divided
+    by N; the median of ``windows`` such windows. N is ``calls``, or more
+    where the warm-up says that ``calls`` take less than ``WINDOW_MS``.
+    Also the host's enqueue per call (host clock around the N calls, before
+    the closing synchronise), ``host_bound`` when that is at least
+    ``HOST_BOUND_SHARE`` of the event time, and then, with ``device=True``,
+    the profiler's device time per call (:func:`device_ms`)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
+    est = (time.perf_counter() - t0) * 1e3 / max(warmup, 1)
+    n = max(calls, min(MAX_CALLS, math.ceil(WINDOW_MS / max(est, 1e-3))))
+    ev, host = [], []
+    for _ in range(windows):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        host.append((time.perf_counter() - t0) * 1e3 / n)
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
+        ev.append(a.elapsed_time(b) / n)
+    out = {"ms": statistics.median(ev), "host_ms": statistics.median(host),
+           "calls": n, "windows": windows}
+    out["host_bound"] = out["host_ms"] >= HOST_BOUND_SHARE * out["ms"]
+    out["device_ms"] = (device_ms(torch, fn, n)
+                        if device and out["host_bound"] else None)
+    return out
+
+
+def time_ms(torch, fn, calls: int = 20, windows: int = 5,
+            warmup: int = 2) -> float:
+    """:func:`time_call`'s amortised event milliseconds per call."""
+    return time_call(torch, fn, calls, windows, warmup)["ms"]
+
+
+def device_ms(torch, fn, calls: int):
+    """Device milliseconds per call of ``fn()`` by ``torch.profiler``: the
+    device records (kernels, copies, memsets) of ``calls`` calls over
+    ``calls``; ``None`` where the profiler records no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if getattr(e, "device_type", None) == DeviceType.CUDA
+             and e.key != "Command Buffer Full")
+    return us / 1e3 / calls if us > 0 else None
 
 
 def max_abs_err(torch, got, want) -> int:
@@ -164,23 +229,30 @@ def max_abs_err(torch, got, want) -> int:
     return err
 
 
-def kernel_row(name, src, replaces, err, ms, plain_ms, nbytes, library_ms,
+def kernel_row(name, src, replaces, err, timed, plain_ms, nbytes, library_ms,
                ops=0, op_rate=INT32_OPS_PER_S):
-    """One entry of the kernels line: the bound is the larger of the bytes
-    over the memory rate and the operations over their type's rate (int32
-    unless ``op_rate`` says otherwise)."""
+    """One entry of the kernels line, from the kernel's :func:`time_call`
+    record ``timed``: the bound is the larger of the bytes over the memory
+    rate and the operations over their type's rate (int32 unless
+    ``op_rate`` says otherwise)."""
     byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
     op_ms = ops / op_rate * 1e3
+    ms = timed["ms"]
     row = {
         "name": name, "route": "cuda", "source": src, "replaces": replaces,
         "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": max(byte_ms, op_ms),
         "bound_by": "bytes" if byte_ms >= op_ms else "operations",
         "library_ms": library_ms, "bytes": nbytes, "ops": ops,
+        "host_ms": timed["host_ms"], "host_bound": timed["host_bound"],
+        "device_ms": timed["device_ms"], "calls": timed["calls"],
     }
+    host = (f" HOST-BOUND (enqueue {timed['host_ms']:.4f} ms a call; "
+            f"profiler device {timed['device_ms']} ms)"
+            if timed["host_bound"] else "")
     log(f"  {name}: max_abs_err={err} ms={ms:.4f} plain_ms={plain_ms:.4f}"
         f" bound_ms={row['bound_ms']:.4f} ({row['bound_by']}) "
-        f"library_ms={library_ms}")
+        f"library_ms={library_ms}{host}")
     return row
 
 
@@ -196,7 +268,6 @@ def kernel_checks(torch, np, dg, g):
     )
 
     dev = dg.device
-    reps = 15
     members = torch.from_numpy(g.edges[:CHUNK].astype(np.int32)).to(dev)
     n_valid = torch.full((CHUNK,), 2, dtype=torch.int32, device=dev)
     c, k, d = members.shape[0], members.shape[1], dg.max_degree
@@ -210,16 +281,16 @@ def kernel_checks(torch, np, dg, g):
     torch.cuda.synchronize()
     err = max_abs_err(torch, got, want)
     need(err == 0, f"expand_canonical differs from its plain version ({err})")
-    ms = time_ms(torch, lambda: expand_canonical_cuda(
-        members, n_valid, dg.nbr, dg.adj_bits), reps)
+    timed = time_call(torch, lambda: expand_canonical_cuda(
+        members, n_valid, dg.nbr, dg.adj_bits), device=True)
     plain = time_ms(torch, lambda: expand_canonical_ref(
-        members, n_valid, dg.nbr, dg.adj_bits), 3, 1)
+        members, n_valid, dg.nbr, dg.adj_bits), **PLAIN)
     nbytes = (c * k * 4 + c * 4 + n_member_rows * (d + w) * 4
               + c * k * d * (4 + 1 + 1))
     rows.append(kernel_row(
         "expand_canonical", "src/repro_torch/kernels/csrc/expand_canonical.cu",
         "src/repro/kernels/canonical_check/canonical_check.py:252",
-        err, ms, plain, nbytes, None))
+        err, timed, plain, nbytes, None))
     cand, valid, keep3 = got
     del want
 
@@ -232,15 +303,15 @@ def kernel_checks(torch, np, dg, g):
     torch.cuda.synchronize()
     err = max_abs_err(torch, got, want)
     need(err == 0, f"canonical_check differs from its plain version ({err})")
-    ms = time_ms(torch, lambda: canonical_check_cuda(
-        fm, fn_, fc, dg.adj_bits), reps)
+    timed = time_call(torch, lambda: canonical_check_cuda(
+        fm, fn_, fc, dg.adj_bits), device=True)
     plain = time_ms(torch, lambda: canonical_check_ref(
-        fm, fn_, fc, dg.adj_bits), 3, 1)
+        fm, fn_, fc, dg.adj_bits), **PLAIN)
     nbytes = b * k * 4 + b * 4 + b * 4 + n_member_rows * w * 4 + b
     rows.append(kernel_row(
         "canonical_check", "src/repro_torch/kernels/csrc/canonical_check.cu",
         "src/repro/kernels/canonical_check/canonical_check.py:87",
-        err, ms, plain, nbytes, None))
+        err, timed, plain, nbytes, None))
     log(f"  canonical_check batch: members {tuple(fm.shape)}, "
         f"{b} candidates")
     del fm, fn_, fc, got, want
@@ -259,13 +330,14 @@ def kernel_checks(torch, np, dg, g):
              "unclamped kept total")
     err = max(errs)
     need(err == 0, f"stream_compact differs from its plain version ({err})")
-    ms = time_ms(torch, lambda: compact.stream_compact_cuda(keep, out_cap), reps)
-    plain = time_ms(torch, lambda: compact.stream_compact_ref(keep, out_cap), 5)
-    lib_ms = time_ms(torch, lambda: torch.nonzero(keep), 5)
+    timed = time_call(torch, lambda: compact.stream_compact_cuda(
+        keep, out_cap), device=True)
+    plain = time_ms(torch, lambda: compact.stream_compact_ref(keep, out_cap))
+    lib_ms = time_ms(torch, lambda: torch.nonzero(keep))
     nbytes = keep.numel() + out_cap * 4 + 4
     rows.append(kernel_row(
         "stream_compact", "src/repro_torch/kernels/csrc/stream_compact.cu",
-        "src/repro/kernels/compact.py:91", err, ms, plain, nbytes, lib_ms))
+        "src/repro/kernels/compact.py:91", err, timed, plain, nbytes, lib_ms))
     log(f"  stream_compact: B={keep.numel()} kept={kept} out_cap={out_cap}")
 
     # -- seg_unique: the chunk's children codes, sorted ---------------------
@@ -290,23 +362,25 @@ def kernel_checks(torch, np, dg, g):
     err = max(errs)
     need(err == 0, f"seg_unique differs from its plain version ({err})")
     n_distinct = int(got[3])
-    ms = time_ms(torch, lambda: aggregate.seg_unique_cuda(new, sv, acap), reps)
-    plain = time_ms(torch, lambda: aggregate.seg_unique_ref(new, sv, acap), 5)
+    timed = time_call(torch, lambda: aggregate.seg_unique_cuda(
+        new, sv, acap), device=True)
+    plain = time_ms(torch, lambda: aggregate.seg_unique_ref(new, sv, acap))
     valid_rows = sc[:kept]
     lib_ms = time_ms(torch, lambda: torch.unique_consecutive(
-        valid_rows, dim=0, return_inverse=True, return_counts=True), 5)
+        valid_rows, dim=0, return_inverse=True, return_counts=True))
     bsz = new.numel()
     nbytes = 2 * bsz + 4 * bsz + 2 * acap * 4 + 4
     rows.append(kernel_row(
         "seg_unique", "src/repro_torch/kernels/csrc/seg_unique.cu",
-        "src/repro/kernels/aggregate.py:110", err, ms, plain, nbytes, lib_ms))
+        "src/repro/kernels/aggregate.py:110", err, timed, plain, nbytes,
+        lib_ms))
     log(f"  seg_unique: B={bsz} cap={acap} distinct={n_distinct}")
     del got, want, sc, sv, new, valid_rows
 
     # -- radix passes: the same chunk's child codes, as the radix bin of the
     # chunk program gets them ----------------------------------------------
     codes, cvalid = qp.codes, child_nv > 0
-    extra = {"radix": radix_checks(torch, codes, cvalid, reps, rows)}
+    extra = {"radix": radix_checks(torch, codes, cvalid, rows)}
     del qp, codes, cvalid, children
     torch.cuda.empty_cache()
     extra["refine_synthetic"] = refine_synthetic_checks(torch, np, dev)
@@ -314,7 +388,7 @@ def kernel_checks(torch, np, dg, g):
     return rows, extra
 
 
-def radix_checks(torch, codes, valid, reps, rows):
+def radix_checks(torch, codes, valid, rows):
     """The radix sort against its plain version (codes, valid and order
     exactly), then its two kernels one varying pass at a time: pass
     (w1, byte 0), whose input order on the main path is the identity (the
@@ -328,11 +402,10 @@ def radix_checks(torch, codes, valid, reps, rows):
     err = max_abs_err(torch, got, want)
     need(err == 0, f"radix_sort_codes differs from its plain version ({err})")
     del got, want
-    sort_ms = time_ms(torch, lambda: radix_bin.radix_sort_codes(codes, valid),
-                      reps)
+    sort_ms = time_ms(torch, lambda: radix_bin.radix_sort_codes(codes, valid))
     sort_plain = time_ms(torch, lambda: radix_bin.radix_sort_codes_ref(
-        codes, valid), 3, 1)
-    sort_lib = time_ms(torch, lambda: aggregate.sort_codes(codes, valid), 5)
+        codes, valid), **PLAIN)
+    sort_lib = time_ms(torch, lambda: aggregate.sort_codes(codes, valid))
     vary = torch.zeros(4, dtype=torch.int32, device=codes.device)
     radix_bin.radix_hist_cuda(codes, valid, torch.arange(
         b, dtype=torch.int32, device=codes.device), 2, 0, vary, True)
@@ -357,26 +430,26 @@ def radix_checks(torch, codes, valid, reps, rows):
     serr = max_abs_err(torch, (out,), (sref,))
     need(serr == 0, f"radix_scatter differs from its plain version ({serr})")
     del out, sref, ref
-    h_ms = time_ms(torch, lambda: radix_bin.radix_hist_cuda(
-        codes, valid, order, 1, 0, vary, False, hist, totals), reps)
+    h_timed = time_call(torch, lambda: radix_bin.radix_hist_cuda(
+        codes, valid, order, 1, 0, vary, False, hist, totals), device=True)
     h_plain = time_ms(torch, lambda: radix_bin.radix_hist_ref(
-        codes, valid, order, 1, 0, radix_bin.RADIX_TILE), 5)
+        codes, valid, order, 1, 0, radix_bin.RADIX_TILE))
     spare = torch.empty_like(order)
-    s_ms = time_ms(torch, lambda: radix_bin.radix_scatter_cuda(
-        codes, valid, order, 1, 0, vary, hist, totals, spare), reps)
+    s_timed = time_call(torch, lambda: radix_bin.radix_scatter_cuda(
+        codes, valid, order, 1, 0, vary, hist, totals, spare), device=True)
     s_plain = time_ms(torch, lambda: radix_bin.radix_scatter_ref(
-        codes, valid, order, 1, 0), 5)
+        codes, valid, order, 1, 0))
     digits = radix_bin._pass_digits(codes, valid, order, 1, 0)
-    s_lib = time_ms(torch, lambda: torch.sort(digits, stable=True), 5)
+    s_lib = time_ms(torch, lambda: torch.sort(digits, stable=True))
     nb = -(-b // radix_bin.RADIX_TILE)
     side = 256 * nb * 4 + 256 * 4
     rows.append(kernel_row(
         "radix_hist", "src/repro_torch/kernels/csrc/radix_sort.cu",
-        "src/repro/kernels/radix_bin.py:83", herr, h_ms, h_plain,
+        "src/repro/kernels/radix_bin.py:83", herr, h_timed, h_plain,
         b * (4 + 8) + side, None))
     rows.append(kernel_row(
         "radix_scatter", "src/repro_torch/kernels/csrc/radix_sort.cu",
-        "src/repro/kernels/radix_bin.py:92", serr, s_ms, s_plain,
+        "src/repro/kernels/radix_bin.py:92", serr, s_timed, s_plain,
         b * (4 + 8 + 4) + side, s_lib))
     info = {"rows": b, "valid": int(valid.sum()), "varying_passes": varying,
             "sort_ms": sort_ms, "sort_plain_ms": sort_plain,
@@ -395,7 +468,7 @@ def library_gather(torch, table, rows, fill):
     return out.masked_fill_(~ok[:, None], fill)
 
 
-def partition_checks(torch, np, G, g, reps=15):
+def partition_checks(torch, np, G, g):
     """Phase 3, partitioned layout: the halo gather and the tile check
     against their plain versions at the shapes the first size-2 chunk of
     the partitioned main path gives them. Returns the two kernel rows and
@@ -440,18 +513,19 @@ def partition_checks(torch, np, G, g, reps=15):
         need(err == 0, f"gather_rows ({name}) differs from its plain "
              f"version ({err})")
         del got, want
-        ms = time_ms(torch, lambda: gather.gather_rows_cuda(
-            table, fi, fill), reps)
+        timed = time_call(torch, lambda: gather.gather_rows_cuda(
+            table, fi, fill), device=True)
         plain = time_ms(torch, lambda: gather.gather_rows_ref(
-            table, fi, fill), 5)
+            table, fi, fill))
         lib_ms = time_ms(torch, lambda: library_gather(
-            torch, table, fi, fill), 5)
+            torch, table, fi, fill))
         r = table.shape[1]
         nbytes = cap * 4 + n_hit * r * 4 + cap * r * 4
         log(f"  gather_rows, {name} tile ({cap} x {r}):")
         gathers[name] = kernel_row(
             "gather_rows", "src/repro_torch/kernels/csrc/gather_rows.cu",
-            "src/repro/kernels/gather.py:63", err, ms, plain, nbytes, lib_ms)
+            "src/repro/kernels/gather.py:63", err, timed, plain, nbytes,
+            lib_ms)
     rows.append(gathers["nbr"])
     info["gather_rows_adj"] = gathers["adj"]
 
@@ -478,8 +552,9 @@ def partition_checks(torch, np, G, g, reps=15):
     need(err == 0, f"canonical_check_tiles differs from its plain version "
          f"({err})")
     del got, want
-    ms = time_ms(torch, lambda: canonical_check_tiles_cuda(*args), reps)
-    plain = time_ms(torch, lambda: canonical_check_tiles_ref(*args), 3, 1)
+    timed = time_call(torch, lambda: canonical_check_tiles_cuda(*args),
+                      device=True)
+    plain = time_ms(torch, lambda: canonical_check_tiles_ref(*args), **PLAIN)
     nbytes = b * (2 * k * 4 + 4 + 4 + 1) + view.adj_t.numel() * 4
     log(f"  canonical_check_tiles: {b} candidates, tile "
         f"{tuple(view.adj_t.shape)}")
@@ -487,7 +562,7 @@ def partition_checks(torch, np, G, g, reps=15):
         "canonical_check_tiles",
         "src/repro_torch/kernels/csrc/canonical_check_tiles.cu",
         "src/repro/kernels/canonical_check/canonical_check.py:155",
-        err, ms, plain, nbytes, None))
+        err, timed, plain, nbytes, None))
     info["tiles_batch"] = b
     return rows, info, pg
 
@@ -527,9 +602,9 @@ def refine_synthetic_checks(torch, np, dev):
         need(max(errs) == 0, f"canonical_refine differs from its plain "
              f"version at nv={nv} ({errs})")
         ms = time_ms(torch, lambda: canonical_refine.refine_cuda(
-            c, v, (nv,)), 5)
+            c, v, (nv,)), 5, 3)
         plain = time_ms(torch, lambda: canonical_refine.refine_codes_ref(
-            c, v, (nv,)), 2, 1)
+            c, v, (nv,)), **PLAIN)
         ops = n * math.factorial(nv) * refine_ops(nv)
         info[nv] = {"rows": n, "ms": ms, "plain_ms": plain, "ops": ops,
                     "bound_ms": ops / INT32_OPS_PER_S * 1e3}
@@ -551,7 +626,7 @@ def refine_synthetic_checks(torch, np, dev):
     return info
 
 
-def refine_main_table(torch, table, reps=15):
+def refine_main_table(torch, table):
     """The refine row, at the distinct table level 2 refined in step 3 of
     the force_device main path run; then where that step's ``t_canon``
     goes: the whole device level-2 program (refine + weighted re-bin) on
@@ -566,9 +641,10 @@ def refine_main_table(torch, table, reps=15):
     err = max_abs_err(torch, got, want)
     need(err == 0, f"canonical_refine differs from its plain version on the "
          f"main path's table ({err})")
-    ms = time_ms(torch, lambda: canonical_refine.refine_cuda(u, uv, nvs), reps)
+    timed = time_call(torch, lambda: canonical_refine.refine_cuda(
+        u, uv, nvs), device=True)
     plain = time_ms(torch, lambda: canonical_refine.refine_codes_ref(
-        u, uv, nvs), 5)
+        u, uv, nvs), **PLAIN)
     q, live = u.shape[0], int(uv.sum())
     nv = nvs[0]
     nbytes = q * (24 + 1 + 24 + 32 + 32) + math.factorial(nv) * 32
@@ -577,10 +653,10 @@ def refine_main_table(torch, table, reps=15):
         f"nv {nv}")
     row = kernel_row(
         "canonical_refine", "src/repro_torch/kernels/csrc/canonical_refine.cu",
-        "src/repro/kernels/canonical_refine.py:266", err, ms, plain, nbytes,
+        "src/repro/kernels/canonical_refine.py:266", err, timed, plain, nbytes,
         None, ops)
     program_ms = time_ms(torch, lambda: aggregation._level2_program(
-        u, c, uv, cap, nvs, True, "radix"), 5)
+        u, c, uv, cap, nvs, True, "radix"), 3, 3)
     quick = u[:live].cpu().numpy()
     canon, sigma, _ = (t[:live].cpu().numpy() for t in got)
     pattern.clear_memo()
@@ -627,7 +703,7 @@ def chunk_program_is_sync_free(torch, dg, pg, members, n_valid):
         torch.cuda.synchronize()
 
 
-def chunk_program_times(torch, dg, pg, members, n_valid, reps=5):
+def chunk_program_times(torch, dg, pg, members, n_valid, calls=3):
     """Milliseconds of one chunk program (the first size-2 chunk, default
     knobs: kernels on, unfused, sort bin) on the whole graph and on the
     partitioned layout, for motifs and cliques, and of the partitioned
@@ -647,10 +723,10 @@ def chunk_program_times(torch, dg, pg, members, n_valid, reps=5):
     for app in (MotifsApp(max_size=3), CliquesApp(max_size=4)):
         for layout, graph in (("whole", dg), ("partitioned", pg)):
             out[f"{type(app).__name__}_{layout}"] = time_ms(
-                torch, program(graph, app), reps)
+                torch, program(graph, app), calls, 3)
     out["build_tile_view"] = time_ms(torch, lambda: explore.build_tile_view(
         pg, members, n_valid, "vertex", use_pallas=True,
-        compact_kernel=True), reps)
+        compact_kernel=True), calls, 3)
     log("  one chunk program, ms: " + ", ".join(
         f"{k} {v:.3f}" for k, v in out.items()))
     return out
@@ -841,7 +917,7 @@ def causal_pairs(sq, sk):
     return sum(min(i + 1, sk) for i in range(sq))
 
 
-def model_kernel_checks(torch, reps=10):
+def model_kernel_checks(torch):
     """6a: RMSNorm and flash attention against their plain versions at the
     model's shapes, bf16 and f32, each timed beside its plain version, its
     bound and the library call of the same function (which the port never
@@ -875,18 +951,23 @@ def model_kernel_checks(torch, reps=10):
                    else 2**-7 * want.float().abs())
             need(bool((diff <= lim).all()), f"rmsnorm {dtype} ({r}, {d}) "
                  f"differs from its plain version by {float(diff.max())}")
-            ms = time_ms(torch, lambda: rmsnorm_cuda(x, scale, cfg.norm_eps),
-                         reps)
-            plain = time_ms(torch, lambda: rmsnorm_ref(x, scale, cfg.norm_eps),
-                            reps)
-            lib = time_ms(torch, lambda: F.rms_norm(x, (d,), scale,
-                                                    cfg.norm_eps), reps)
+            timed = time_call(torch, lambda: rmsnorm_cuda(
+                x, scale, cfg.norm_eps), device=True)
+            plain = time_ms(torch, lambda: rmsnorm_ref(x, scale, cfg.norm_eps))
+            lib = time_call(torch, lambda: F.rms_norm(x, (d,), scale,
+                                                      cfg.norm_eps),
+                            device=True)
             row = kernel_row(
                 "rmsnorm", "src/repro_torch/kernels/csrc/rmsnorm.cu",
                 "src/repro/kernels/rmsnorm/rmsnorm.py:23", float(diff.max()),
-                ms, plain, (2 * r * d + d) * es, lib, ops=4 * r * d,
+                timed, plain, (2 * r * d + d) * es, lib["ms"], ops=4 * r * d,
                 op_rate=F32_FLOPS)
-            cases.append(dict(row, shape=[r, d], dtype=str(dtype), at=what))
+            cases.append(dict(row, shape=[r, d], dtype=str(dtype), at=what,
+                              library=lib))
+            if lib["host_bound"]:
+                log(f"    F.rms_norm is host-bound here too: enqueue "
+                    f"{lib['host_ms']:.4f} ms a call, profiler device "
+                    f"{lib['device_ms']} ms")
             if dtype == torch.bfloat16 and what == "forward":
                 rows["rmsnorm"] = row
             del x, got, want, diff
@@ -902,34 +983,54 @@ def model_kernel_checks(torch, reps=10):
             q = torch.randn((b, s, h, hd), generator=gen, device=dev).to(dtype)
             k = torch.randn((b, s, kv, hd), generator=gen, device=dev).to(dtype)
             v = torch.randn((b, s, kv, hd), generator=gen, device=dev).to(dtype)
-            got = flash_attention_cuda(q, k, v)
-            want = flash_attention_ref(q, k, v)
-            torch.cuda.synchronize()
-            diff = (got.float() - want.float()).abs()
-            # f32: the JAX package's kernel-test bound 2e-5; bf16: both
-            # round once from f32, so at most one bf16 step (2^-7 relative)
-            lim = (2e-5 + 2e-5 * want.float().abs() if dtype == torch.float32
-                   else 1e-5 + 2**-7 * want.float().abs())
-            need(bool((diff <= lim).all()),
-                 f"flash_attention {dtype} {what} differs from its plain "
-                 f"version by {float(diff.max())}")
-            del want
-            n = 3 if s > 1000 else reps
-            ms = time_ms(torch, lambda: flash_attention_cuda(q, k, v), n)
-            plain = time_ms(torch, lambda: flash_attention_ref(q, k, v), n, 1)
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-            lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True), n)
+
+            def sdpa():
+                return F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=True)
+
+            got = flash_attention_cuda(q, k, v)
+            want = flash_attention_ref(q, k, v).float()
+            lib_out = sdpa().transpose(1, 2).float()
+            torch.cuda.synchronize()
+            diff = (got.float() - want).abs()
+            lib_err = float((lib_out - want).abs().max())
+            if dtype == torch.float32:
+                # the JAX package's f32 kernel-test bound
+                need(bool((diff <= 2e-5 + 2e-5 * want.abs()).all()),
+                     f"flash_attention {dtype} {what} differs from its plain "
+                     f"version by {float(diff.max())}")
+            else:
+                # bf16 rounds P before PV as the TPU kernel's MXU and SDPA
+                # do: the JAX package's bf16 bound for this kernel
+                # (tests/test_kernels.py, atol = rtol = 2e-2), and no
+                # further from the plain version than 1.5x SDPA is
+                need(bool((diff <= 2e-2 + 2e-2 * want.abs()).all()),
+                     f"flash_attention {dtype} {what} differs from its plain "
+                     f"version by {float(diff.max())} (bound 2e-2)")
+                need(float(diff.max()) <= 1.5 * lib_err,
+                     f"flash_attention {dtype} {what}: max error "
+                     f"{float(diff.max())} above 1.5x SDPA's {lib_err}")
+            del want, lib_out
+            timed = time_call(torch, lambda: flash_attention_cuda(q, k, v),
+                              device=True)
+            plain = time_ms(torch, lambda: flash_attention_ref(q, k, v),
+                            **PLAIN)
+            lib = time_ms(torch, sdpa)
             flops = 4 * hd * causal_pairs(s, s) * b * h
             nbytes = (2 * q.numel() + k.numel() + v.numel()) * es
             row = kernel_row(
                 "flash_attention",
                 "src/repro_torch/kernels/csrc/flash_attention.cu",
                 "src/repro/kernels/flash_attention/flash_attention.py:68",
-                float(diff.max()), ms, plain, nbytes, lib, ops=flops,
+                float(diff.max()), timed, plain, nbytes, lib, ops=flops,
                 op_rate=rate)
+            log(f"    SDPA's max_abs_err against the plain version "
+                f"{lib_err}; kernel {flops / timed['ms'] / 1e9:.1f} TFLOP/s, "
+                f"{row['bound_ms'] / timed['ms']:.1%} of its bound, "
+                f"{timed['ms'] / lib:.2f}x SDPA")
             cases.append(dict(row, shape=[b, s, h, kv, hd], dtype=str(dtype),
-                              at=what))
+                              at=what, library_max_abs_err=lib_err))
             if dtype == torch.bfloat16 and what.startswith("qwen"):
                 rows["flash_attention"] = row
             del q, k, v, got, diff, qt, kt, vt

@@ -6,9 +6,11 @@ and the GQA wrapper of ``ops.py``).
     (``csrc/flash_attention.cu``): q (B, Sq, H, D), k and v (B, Sk, KV, D),
     read at their strides with head h reading KV head h // (H / KV), so
     the repeat and the transposes of the reference's wrapper are never
-    materialised. Any Sq and Sk; D a multiple of 8 up to 256; bf16 or f32.
-    It takes its plain version for a CPU tensor and launches the kernel for
-    a CUDA tensor; anything else raises.
+    materialised. Any Sq and Sk; D a multiple of 8 up to 256. bf16 runs on
+    the tensor cores (wgmma, TMA) and rounds the softmax weights to bf16
+    before the weighted sum, as the TPU kernel's MXU does; f32 runs on the
+    CUDA cores. It takes its plain version for a CPU tensor and launches
+    the kernel for a CUDA tensor; anything else raises.
   * :func:`flash_attention_ref` — the plain version, the same function:
     f32 scores scaled by D^-1/2, the start-aligned causal mask
     ``q_pos >= k_pos`` (positions from 0, also when Sq != Sk), an f32
@@ -66,20 +68,53 @@ def _check(q, k, v):
         raise ValueError(f"B = {b}, H = {h} or S exceed the launch grid")
 
 
+def tma_readable(t: torch.Tensor) -> bool:
+    """Whether TMA can read the (B, S, heads, D) tensor ``t`` where it lies:
+    the last dimension contiguous, the base address 16-byte aligned and
+    each outer stride a multiple of 16 bytes (dimensions of size 1 are
+    never stepped over and do not count)."""
+    es = t.element_size()
+    return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+            and all(t.stride(i) * es % 16 == 0
+                    for i in range(3) if t.shape[i] > 1))
+
+
+def kernel_strides(t: torch.Tensor):
+    """Element strides (batch, row, head) of ``t`` for the kernel; a
+    dimension of size 1 takes the stride it would have if ``t`` were
+    contiguous, since the kernel never steps over it and a tensor map
+    checks every stride."""
+    packed = (t.shape[1] * t.shape[2] * t.shape[3], t.shape[2] * t.shape[3],
+              t.shape[3])
+    return [t.stride(i) if t.shape[i] > 1 else packed[i] for i in range(3)]
+
+
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          causal: bool = True):
-    """q (B, Sq, H, D), k/v (B, Sk, KV, D) -> (B, Sq, H, D) in q's type."""
+    """q (B, Sq, H, D), k/v (B, Sk, KV, D) -> (B, Sq, H, D) in q's type.
+
+    Inputs are read where they lie, at their strides. A bf16 input that TMA
+    cannot read there (:func:`tma_readable`: a base address not 16-byte
+    aligned, or an outer stride not a multiple of 8 elements) is first
+    copied to fresh contiguous memory; an f32 input only when its last
+    dimension is not contiguous."""
     if not on_cuda(q):
         return flash_attention_ref(q, k, v, causal)
     _check(q, k, v)
-    q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
+    if q.dtype == torch.bfloat16:
+        q, k, v = (t if tma_readable(t)
+                   else t.clone(memory_format=torch.contiguous_format)
+                   for t in (q, k, v))
+    else:
+        q, k, v = (t if t.stride(-1) == 1 else t.contiguous()
+                   for t in (q, k, v))
     b, sq, h, d = q.shape
     sk, kv = k.shape[1], k.shape[2]
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
     strides = (ctypes.c_longlong * 9)(*(
-        t.stride(i) for t in (q, k, v) for i in (0, 1, 2)))
+        st for t in (q, k, v) for st in kernel_strides(t)))
     lib = build.library()
     with torch.cuda.device(q.device):
         build.count_launch("flash_attention")

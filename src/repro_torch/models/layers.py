@@ -142,10 +142,13 @@ def gqa_attention(cfg: ArchConfig, p: Attention, x, positions):
     (the RoPE angles; the kernel's causal mask is 0..S-1 too).
 
     The attention itself is the flash-attention kernel (its plain version
-    on a CPU tensor): scale D^-1/2, KV head h // G read at its strides, and
-    the softmax weights kept in f32 where the reference's ``_sdpa`` rounds
-    them to bf16. The windowed and non-causal attention of the hybrid and
-    encoder families is not ported (ROADMAP.md queue A item 13)."""
+    on a CPU tensor): scale D^-1/2 on the f32 scores, KV head h // G read
+    at its strides. On the card in bf16 it rounds the softmax weights to
+    bf16 before the weighted sum, as the reference's ``_sdpa`` does (an
+    online softmax, so per 128-key tile and before the division by the
+    sum); the plain version keeps them in f32. The windowed and non-causal
+    attention of the hybrid and encoder families is not ported (ROADMAP.md
+    queue A item 13)."""
     b, s, _ = x.shape
     dh = cfg.head_dim
     q = _proj(x, p.wq).reshape(b, s, cfg.n_heads, dh)

@@ -12,6 +12,7 @@ both sides compute in f32 and round once, so they differ by at most one
 bf16 rounding step (relative 2^-7) for rmsnorm, and by the JAX package's
 own 2e-2 for attention."""
 import dataclasses
+import math
 
 import jax.numpy as jnp
 import numpy as np
@@ -28,7 +29,7 @@ from repro_torch import configs
 from repro_torch.configs import base as tbase
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_attention.flash_attention import (
-    flash_attention_cuda, flash_attention_ref,
+    flash_attention_cuda, flash_attention_ref, kernel_strides, tma_readable,
 )
 from repro_torch.kernels.rmsnorm import rmsnorm
 from repro_torch.kernels.rmsnorm.rmsnorm import rmsnorm_cuda, rmsnorm_ref
@@ -169,6 +170,85 @@ def test_flash_gqa_mapping_matches_reference(b, s, h, kv, d):
     np.testing.assert_array_equal(
         got.numpy(),
         flash_attention_ref(*(torch.from_numpy(a) for a in (q, k, v))).numpy())
+
+
+def _tiled_bf16_flash(q, k, v, causal=True, block_k=128):
+    """Tile-by-tile emulation of the card kernel's bf16 arithmetic
+    (``csrc/flash_attention.cu``, ``flash_attention_tc``): q (B, Sq, H, D),
+    k/v (B, Sk, KV, D) in bf16; per ``block_k``-row K/V tile the f32 scores
+    Q K^T, the causal and ragged mask, an f32 running max and sum with the
+    scale and log2 e folded into one exp2, P rounded to bf16 before an f32
+    PV, then one division by the sum and one rounding to bf16."""
+    b, sq, h, d = q.shape
+    sk, kv = k.shape[1], k.shape[2]
+    qh = q.float().permute(0, 2, 1, 3)
+    kh, vh = (t.float().repeat_interleave(h // kv, dim=2).permute(0, 2, 1, 3)
+              for t in (k, v))
+    scale_log2 = math.log2(math.e) / math.sqrt(d)
+    m = torch.full((b, h, sq, 1), float("-inf"))
+    l = torch.zeros((b, h, sq, 1))
+    o = torch.zeros((b, h, sq, d))
+    rows = torch.arange(sq)[:, None]
+    for k0 in range(0, sk, block_k):
+        s = qh @ kh[:, :, k0:k0 + block_k].transpose(-1, -2)
+        if causal:
+            cols = torch.arange(k0, min(k0 + block_k, sk))[None, :]
+            s = s.masked_fill(cols > rows, float("-inf"))
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.where(m == float("-inf"), 0.0,
+                            torch.exp2((m - m_new) * scale_log2))
+        shift = torch.where(m_new == float("-inf"), 0.0, m_new * scale_log2)
+        p = torch.exp2(s * scale_log2 - shift)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        o = o * alpha + p.bfloat16().float() @ vh[:, :, k0:k0 + block_k]
+        m = m_new
+    out = torch.where(l > 0, o / l, 0.0)
+    return out.permute(0, 2, 1, 3).to(torch.bfloat16)
+
+
+def test_bf16_tile_arithmetic_holds_the_kernel_bound():
+    """The card kernel's bf16 design (P rounded to bf16 per 128-row K tile,
+    f32 running max and sum), emulated on the CPU, stays within the JAX
+    package's bf16 bound for this kernel (2e-2) of the plain version and of
+    the reference oracle, at B=1, S=300, 4 over 2 heads of 64. Head 0's row
+    250 is steered onto key 200, so its scores span more than 30 units and
+    its running max jumps in the second tile."""
+    rng = np.random.default_rng(3)
+    b, s, h, kv, d = 1, 300, 4, 2, 64
+    q = rng.standard_normal((b, s, h, d)).astype(np.float32)
+    k = rng.standard_normal((b, s, kv, d)).astype(np.float32)
+    v = rng.standard_normal((b, s, kv, d)).astype(np.float32)
+    q[0, 250, 0] = 45.0 * k[0, 200, 0] / np.linalg.norm(k[0, 200, 0])
+    (qj, qt), (kj, kt), (vj, vt) = (_both(a, "bfloat16") for a in (q, k, v))
+    scores = (qt[0, 250, 0].float() @ kt[0, :251, 0].float().T) / math.sqrt(d)
+    assert float(scores.max() - scores.min()) >= 30
+    got = _tiled_bf16_flash(qt, kt, vt)
+    assert got.shape == qt.shape and got.dtype == torch.bfloat16
+    want = flash_attention_ref(qt, kt, vt)
+    np.testing.assert_allclose(_f32(got), _f32(want), atol=2e-2, rtol=2e-2)
+    kk = jnp.repeat(kj, h // kv, axis=2)
+    vv = jnp.repeat(vj, h // kv, axis=2)
+    oracle = attention_ref(_bhsd(qj), _bhsd(kk), _bhsd(vv))
+    oracle = _f32(oracle).reshape(b, h, s, d).transpose(0, 2, 1, 3)
+    np.testing.assert_allclose(_f32(got), oracle, atol=2e-2, rtol=2e-2)
+
+
+def test_tma_readability_and_kernel_strides():
+    """Where the bf16 wrapper reads a tensor in place (TMA's 16-byte rules)
+    and which strides it hands the kernel."""
+    qkv = torch.zeros((2, 5, 12, 64), dtype=torch.bfloat16)
+    k = qkv[:, :, 8:10]                       # a fused projection's view
+    assert tma_readable(k) and kernel_strides(k) == [3840, 768, 64]
+    flat = torch.zeros(2 * 5 * 4 * 64 + 1, dtype=torch.bfloat16)
+    assert not tma_readable(flat[1:].view(2, 5, 4, 64))   # base off by 2 B
+    assert not tma_readable(torch.zeros((1, 4, 2, 12),
+                                        dtype=torch.bfloat16)[..., :8])
+    assert not tma_readable(qkv.transpose(2, 3)[..., :8])  # D strided
+    one = torch.zeros((1, 1, 4, 16), dtype=torch.bfloat16)
+    assert tma_readable(one) and kernel_strides(one) == [64, 64, 16]
+    odd = torch.zeros((1, 3, 1, 16), dtype=torch.bfloat16).as_strided(
+        (1, 3, 1, 16), (7, 16, 5, 1))         # size-1 strides never used
+    assert tma_readable(odd) and kernel_strides(odd) == [48, 16, 16]
 
 
 def test_wrappers_refuse_other_devices():
