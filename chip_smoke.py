@@ -14,8 +14,12 @@ Phases, in order; any failure exits non-zero and prints no result:
      the canonical refine also on seeded codes of every nv from 2 to 8,
      with and without orbits; the halo gather and the tile check on the
      partitioned layout (``to_partitioned(mico_like(0.1), 4)``, the halo
-     of the first size-2 chunk); then one chunk program per route, whole
-     graph and partitioned, under sync debug mode "error";
+     of the first size-2 chunk); the stream compaction also at B of 0, 1,
+     one tile, one tile + 1 and 4 x 132 tiles, masks all false, all true
+     and random, out_cap 0, below and above the count, flags at byte
+     offset 3, each case twice, and timed at ``halo_unique``'s shape;
+     then one chunk program per route, whole graph and partitioned, under
+     sync debug mode "error";
   4. the card port against the CPU port on ``mico_like(0.005)``: motifs and
      cliques with the default config, motifs under
      ``cost_model="force_device"`` and under
@@ -40,7 +44,10 @@ Phases, in order; any failure exits non-zero and prints no result:
         and f32, timed beside their plain versions and the library calls
         ``torch.nn.functional.rms_norm`` and ``scaled_dot_product_attention``;
         bf16 flash attention within the JAX package's 2e-2 and no further
-        from the plain version than 1.5x SDPA's largest error;
+        from the plain version than 1.5x SDPA's largest error; RMSNorm
+        also with a scale of the other type; the host time a call of the
+        RMSNorm wrapper, ``F.rms_norm`` and each piece of a wrapper at the
+        decode shape, over 10,000 calls each;
      b. the card port against the CPU port on the reduced qwen2.5-14b,
         smollm-135m and stablelm-1.6b (forward and 8 decode steps);
      c. the main path: qwen2.5-14b at its published widths and 48 layers
@@ -256,6 +263,36 @@ def kernel_row(name, src, replaces, err, timed, plain_ms, nbytes, library_ms,
     return row
 
 
+def compact_cases(torch, compact, build):
+    """The compaction kernel against its plain version off the main path's
+    shape: B of 0, 1, one tile, one tile + 1 and 4 x 132 tiles + 77 (look-
+    back chains longer than the card holds tiles at once); masks all
+    false, all true and random at 0.3; out_cap 0, below the count and above
+    it; the flags contiguous and at byte offset 3. Each case runs twice
+    (the second call on the first one's scratch block, so a missed reset
+    of the tile words would show). Returns the largest difference."""
+    tile = build.library().repro_compact_tile()
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    err, n = 0, 0
+    for b in (0, 1, tile, tile + 1, 4 * 132 * tile + 77):
+        flags = torch.rand(b + 3, generator=gen, device="cuda") < 0.3
+        for fill in (None, False, True):
+            if fill is not None:
+                flags.fill_(fill)
+            for keep in (flags[:b], flags[3:]):
+                kept = int(keep.sum())
+                for cap in (0, kept // 2, kept + 5):
+                    want = compact.stream_compact_ref(keep, cap)
+                    for _ in range(2):
+                        got = compact.stream_compact_cuda(keep, cap)
+                        torch.cuda.synchronize()
+                        err = max(err, max_abs_err(torch, got, want))
+                        n += 1
+    log(f"  stream_compact: {n} off-path cases (B 0 to {4 * 132 * tile + 77}"
+        f", tiles of {tile}), max_abs_err {err}")
+    return err
+
+
 def kernel_checks(torch, np, dg, g):
     """Phase 3: every kernel against its plain version at main-path shapes
     (the first size-2 chunk of mico_like(0.1) and what it produces)."""
@@ -328,7 +365,7 @@ def kernel_checks(torch, np, dg, g):
         errs.append(max_abs_err(torch, got, want))
         need(int(got[1]) == kept, "stream_compact count is not the "
              "unclamped kept total")
-    err = max(errs)
+    err = max(errs + [compact_cases(torch, compact, build)])
     need(err == 0, f"stream_compact differs from its plain version ({err})")
     timed = time_call(torch, lambda: compact.stream_compact_cuda(
         keep, out_cap), device=True)
@@ -474,7 +511,7 @@ def partition_checks(torch, np, G, g):
     the partitioned main path gives them. Returns the two kernel rows and
     the partitioned graph (for the sync check)."""
     from repro_torch.core import explore
-    from repro_torch.kernels import gather
+    from repro_torch.kernels import compact, gather
     from repro_torch.kernels.canonical_check.canonical_check import (
         canonical_check_tiles_cuda, canonical_check_tiles_ref, expand_masks,
     )
@@ -500,6 +537,18 @@ def partition_checks(torch, np, G, g):
         f"{pg.tile_rows} rows per shard, halo {n_hit} of U={cap}")
     info = {"part_offsets": pg.part_offsets.tolist(),
             "tile_rows": pg.tile_rows, "halo": n_hit, "halo_cap": cap}
+    # the compaction at halo_unique's shape: n presence flags, host-bound
+    flat = verts.reshape(-1)
+    presence = torch.zeros((pg.n + 1,), dtype=torch.bool, device=dev)
+    presence.scatter_(0, torch.where((flat >= 0) & (flat < pg.n), flat,
+                                     pg.n).to(torch.int64), True)
+    presence = presence[:pg.n]
+    info["stream_compact_halo"] = t = time_call(
+        torch, lambda: compact.stream_compact_cuda(presence, cap),
+        device=True)
+    log(f"  stream_compact at halo_unique's shape (n={pg.n}, out_cap={cap})"
+        f": {t['ms']:.4f} ms by events, host enqueue {t['host_ms']:.4f} ms "
+        f"a call, profiler device {t['device_ms']} ms")
 
     # -- gather_rows: the neighbour and adjacency tiles of the chunk --------
     rows, gathers = [], {}
@@ -938,19 +987,27 @@ def model_kernel_checks(torch):
     d = cfg.d_model
     for dtype in (torch.bfloat16, torch.float32):
         es = torch.finfo(dtype).bits // 8
+        other = torch.float32 if dtype == torch.bfloat16 else torch.bfloat16
         for r, what in ((FWD_B * FWD_S, "forward"), (SERVE_B, "decode step")):
             x = torch.randn((r, d), generator=gen, device=dev).to(dtype)
-            scale = (1 + 0.1 * torch.randn((d,), generator=gen,
-                                           device=dev)).to(dtype)
-            got = rmsnorm_cuda(x, scale, cfg.norm_eps)
-            want = rmsnorm_ref(x, scale, cfg.norm_eps)
-            torch.cuda.synchronize()
-            diff = (got.float() - want.float()).abs()
-            # both round once from f32: f32 to 1e-5, bf16 one step (2^-7)
-            lim = (1e-6 + 1e-5 * want.float().abs() if dtype == torch.float32
-                   else 2**-7 * want.float().abs())
-            need(bool((diff <= lim).all()), f"rmsnorm {dtype} ({r}, {d}) "
-                 f"differs from its plain version by {float(diff.max())}")
+            scale32 = 1 + 0.1 * torch.randn((d,), generator=gen, device=dev)
+            # a scale of the other kernel type first: checked, not timed
+            for sdtype in (other, dtype):
+                scale = scale32.to(sdtype)
+                got = rmsnorm_cuda(x, scale, cfg.norm_eps)
+                want = rmsnorm_ref(x, scale, cfg.norm_eps)
+                torch.cuda.synchronize()
+                diff = (got.float() - want.float()).abs()
+                # both round once from f32: f32 to 1e-5, bf16 one step (2^-7)
+                lim = (1e-6 + 1e-5 * want.float().abs()
+                       if dtype == torch.float32
+                       else 2**-7 * want.float().abs())
+                need(bool((diff <= lim).all()), f"rmsnorm {dtype} ({r}, {d}) "
+                     f"with a {sdtype} scale differs from its plain version "
+                     f"by {float(diff.max())}")
+                if sdtype == other:
+                    log(f"  rmsnorm {dtype} ({r}, {d}) with a {other} "
+                        f"scale: max_abs_err {float(diff.max())}")
             timed = time_call(torch, lambda: rmsnorm_cuda(
                 x, scale, cfg.norm_eps), device=True)
             plain = time_ms(torch, lambda: rmsnorm_ref(x, scale, cfg.norm_eps))
@@ -968,6 +1025,10 @@ def model_kernel_checks(torch):
                 log(f"    F.rms_norm is host-bound here too: enqueue "
                     f"{lib['host_ms']:.4f} ms a call, profiler device "
                     f"{lib['device_ms']} ms")
+            if what == "decode step":
+                log(f"    host enqueue a call at the decode shape: kernel "
+                    f"{timed['host_ms']:.4f} ms, F.rms_norm "
+                    f"{lib['host_ms']:.4f} ms")
             if dtype == torch.bfloat16 and what == "forward":
                 rows["rmsnorm"] = row
             del x, got, want, diff
@@ -1036,6 +1097,90 @@ def model_kernel_checks(torch):
             del q, k, v, got, diff, qt, kt, vt
             torch.cuda.empty_cache()
     return [rows["rmsnorm"], rows["flash_attention"]], cases
+
+
+#: calls a piece of the RMSNorm wrapper is timed over (host clock), and
+#: the turns in which the wrapper and F.rms_norm share them
+HOST_CALLS = 10_000
+HOST_TURNS = 10
+
+
+def rmsnorm_host_pieces(torch) -> dict:
+    """6a: host microseconds a call, each over ``HOST_CALLS`` calls with
+    the host clock, at the decode shape (4 x 5,120 bf16): the RMSNorm
+    wrapper and ``F.rms_norm`` in ``HOST_TURNS`` alternating turns (the
+    medians), and each piece a wrapper can spend host time on: the ones it
+    runs (the output allocation, the ctypes call of the C entry with its
+    launch, the raw stream and current-device reads, three ``data_ptr``)
+    beside costlier forms of the same work (a ``torch.cuda.Stream`` object
+    a call, a device guard, two
+    ``contiguous()``, alignment probes, ``build.library()``, a ``c_float``
+    built by hand)."""
+    import ctypes
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels.rmsnorm.rmsnorm import rmsnorm_cuda
+
+    F = torch.nn.functional
+    eps = 1e-6
+    x = torch.randn((SERVE_B, 5120), device="cuda").to(torch.bfloat16)
+    scale = torch.ones((5120,), device="cuda", dtype=torch.bfloat16)
+    out = torch.empty_like(x)
+    fn = build.library().repro_rmsnorm
+    dev = x.get_device()
+    stream = build.raw_stream(dev)
+    xp, sp, op = x.data_ptr(), scale.data_ptr(), out.data_ptr()
+
+    def guard():
+        with torch.cuda.device(x.device):
+            pass
+
+    pieces = {
+        "wrapper (rmsnorm_cuda)": lambda: rmsnorm_cuda(x, scale, eps),
+        "F.rms_norm": lambda: F.rms_norm(x, (5120,), scale, eps),
+        "torch.empty_like": lambda: torch.empty_like(x),
+        "C entry by ctypes, launch included": lambda: fn(
+            xp, sp, op, SERVE_B, 5120, eps, 1, 1, stream),
+        "build.raw_stream": lambda: build.raw_stream(dev),
+        "torch.cuda.current_device": torch.cuda.current_device,
+        "three data_ptr": lambda: (x.data_ptr(), scale.data_ptr(),
+                                   out.data_ptr()),
+        "torch.cuda.current_stream().cuda_stream": lambda: build.stream_of(x),
+        "with torch.cuda.device": guard,
+        "two contiguous()": lambda: (x.contiguous(), scale.contiguous()),
+        "three alignment probes": lambda: all(
+            t.data_ptr() % 16 == 0 for t in (x, scale, out)),
+        "build.library()": build.library,
+        "ctypes.c_float(eps)": lambda: ctypes.c_float(eps),
+    }
+    def per_call(piece, calls):
+        for _ in range(100):
+            piece()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            piece()
+        t = (time.perf_counter() - t0) * 1e6 / calls
+        torch.cuda.synchronize()
+        return t
+
+    # the two whole calls in turns (a b b a ...), HOST_CALLS each in all
+    turns = {"wrapper (rmsnorm_cuda)": [], "F.rms_norm": []}
+    names = list(turns)
+    for r in range(HOST_TURNS):
+        for name in (names if r % 2 == 0 else names[::-1]):
+            turns[name].append(per_call(pieces[name],
+                                        HOST_CALLS // HOST_TURNS))
+    us = {name: statistics.median(t) for name, t in turns.items()}
+    us.update((name, per_call(piece, HOST_CALLS))
+              for name, piece in pieces.items() if name not in turns)
+    log("    host us a call at the decode shape: " + "; ".join(
+        f"{k} {v:.2f}" for k, v in us.items()))
+    for name, t in turns.items():
+        log(f"    {name} in {HOST_TURNS} turns of {HOST_CALLS // HOST_TURNS}"
+            f" calls: median {us[name]:.2f} us, range {min(t):.2f}-"
+            f"{max(t):.2f}")
+    return {"us": us, "turns": turns}
 
 
 def logit_errors(got, base, ref):
@@ -1470,6 +1615,7 @@ def main(argv=None) -> int:
         "widths")
     rows, extra["model_kernels"] = model_kernel_checks(torch)
     kernels += rows
+    extra["rmsnorm_host_us"] = rmsnorm_host_pieces(torch)
     build.reset_launches()
     log("[6b] card port vs CPU port on reduced qwen2.5-14b, smollm-135m, "
         "stablelm-1.6b")

@@ -23,6 +23,8 @@ import time
 from pathlib import Path
 from typing import Dict, Optional
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "_build"
 LIB_NAME = "libreprokernels.so"
@@ -189,12 +191,38 @@ def check(status: int, name: str) -> None:
 
 
 def scan_tile() -> int:
-    """Flags per block of the two scan kernels (scratch sizing)."""
+    """Flags per block of the three-pass scan kernels (scratch sizing)."""
     return int(library().repro_scan_tile())
 
 
 def stream_of(t) -> int:
     """Raw handle of PyTorch's current stream on ``t``'s device."""
-    import torch
-
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+#: ``raw_stream(device)``: the raw handle of PyTorch's current stream on
+#: CUDA device ``device`` (an index), read without building a
+#: ``torch.cuda.Stream``: the private call behind ``torch._inductor``'s
+#: ``get_raw_stream`` (None in a PyTorch built without CUDA).
+#: tests/test_torch_cuda.py holds it equal to
+#: ``torch.cuda.current_stream(device).cuda_stream``, on a non-default
+#: stream too.
+raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def launch(name: str, fn, device: int, *args) -> None:
+    """Count one launch of kernel ``name`` and call its C entry point
+    ``fn(*args, stream)`` on PyTorch's current stream of CUDA device
+    ``device`` (an index), under a device guard only when that device is
+    not the current one; raise on a non-zero status. One Python frame and
+    no ``torch.cuda.Stream``: the wrappers whose host time counts
+    (rmsnorm, stream_compact) launch through it."""
+    LAUNCHES[name] += 1
+    stream = raw_stream(device)
+    if device == torch.cuda.current_device():
+        status = fn(*args, stream)
+    else:
+        with torch.cuda.device(device):
+            status = fn(*args, stream)
+    if status:
+        check(status, name)

@@ -1,12 +1,12 @@
-"""Stream compaction (tile scan + scatter) as a hand-written CUDA kernel,
-port of ``repro.kernels.compact``.
+"""Stream compaction (one-pass scan with a decoupled look-back) as a
+hand-written CUDA kernel, port of ``repro.kernels.compact``.
 
 The chunk program of the fused superstep pipeline (DESIGN.md §8) turns a
 flat keep mask over candidate slots into the dense child frontier.
 :func:`stream_compact_cuda` launches ``csrc/stream_compact.cu``; CUDA
 blocks run in no fixed order, so where the Pallas kernel carried a running
-total across a grid that runs in order, this one scans tile counts in a
-second pass.
+total across a grid that runs in order, each tile of this one takes its
+offset from the sums its predecessors publish.
 
 Contract (identical between the kernel and :func:`stream_compact_ref`):
 
@@ -24,6 +24,17 @@ from repro_torch.kernels import build
 from repro_torch.kernels.dispatch import on_cuda
 
 INT32_MAX = 2**31 - 1
+
+#: (the C entry ``repro_stream_compact``, flags per tile), bound at the
+#: first launch; the kernel's scratch is one 8-byte word a tile, plus one
+_kernel = None
+
+
+def _bind():
+    global _kernel
+    lib = build.library()
+    _kernel = (lib.repro_stream_compact, int(lib.repro_compact_tile()))
+    return _kernel
 
 
 def stream_compact_ref(keep: torch.Tensor, out_cap: int):
@@ -48,7 +59,7 @@ def stream_compact_cuda(keep: torch.Tensor, out_cap: int):
     ``idx[:min(count, out_cap)]`` are the kept positions of ``keep`` in
     ascending order (pad slots 0); ``count`` is the unclamped kept total.
     Accepts any ``B`` including 0. Never synchronises."""
-    if not on_cuda(keep):
+    if not (keep.is_cuda or on_cuda(keep)):
         return stream_compact_ref(keep, out_cap)
     if keep.dtype != torch.bool or keep.dim() != 1:
         raise TypeError(f"keep: expected 1-d bool, got {keep.dim()}-d "
@@ -57,18 +68,17 @@ def stream_compact_cuda(keep: torch.Tensor, out_cap: int):
     if n > INT32_MAX or not 0 <= out_cap <= INT32_MAX:
         raise ValueError(f"batch {n} / out_cap {out_cap} exceed int32")
     dev = keep.device
-    keep = keep.contiguous()
-    idx = torch.zeros((out_cap,), dtype=torch.int32, device=dev)
-    count = torch.zeros((), dtype=torch.int32, device=dev)
     if n == 0:
-        return idx, count
-    lib = build.library()
-    tiles = torch.empty((-(-n // build.scan_tile()),), dtype=torch.int32,
-                        device=dev)
-    with torch.cuda.device(dev):
-        build.count_launch("stream_compact")
-        build.check(lib.repro_stream_compact(
-            keep.data_ptr(), n, out_cap, idx.data_ptr(), count.data_ptr(),
-            tiles.data_ptr(), build.stream_of(keep),
-        ), "stream_compact")
+        return (torch.zeros((out_cap,), dtype=torch.int32, device=dev),
+                torch.zeros((), dtype=torch.int32, device=dev))
+    if not keep.is_contiguous():
+        keep = keep.contiguous()
+    fn, tile = _kernel or _bind()
+    idx = torch.empty((out_cap,), dtype=torch.int32, device=dev)
+    count = torch.empty((), dtype=torch.int32, device=dev)
+    scratch = torch.empty((-(-n // tile) + 1,), dtype=torch.int64,
+                          device=dev)
+    build.launch("stream_compact", fn, keep.get_device(), keep.data_ptr(), n,
+                 out_cap, idx.data_ptr(), count.data_ptr(),
+                 scratch.data_ptr())
     return idx, count

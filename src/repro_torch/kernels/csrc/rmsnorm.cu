@@ -1,8 +1,9 @@
-// RMSNorm over the last dimension: x (R, D) and scale (D,), both bf16 or
-// both f32 -> out (R, D) in x's type:
+// RMSNorm over the last dimension: x (R, D) bf16 or f32 and scale (D,) bf16
+// or f32, of either type whatever x's -> out (R, D) in x's type:
 //   out = (x * rsqrt(mean(x^2) + eps)) * scale
 // with the mean of squares, the normalisation and the scale all in f32 and
-// one rounding at the store (the arithmetic of the TPU kernel's body).
+// one rounding at the store (the arithmetic of the TPU kernel's body, which
+// casts any scale to f32).
 //
 // Replaces: src/repro/kernels/rmsnorm/rmsnorm.py:rmsnorm_pallas (_kernel),
 // which normalises a (256, D) block of rows per grid step in VMEM; its
@@ -11,22 +12,33 @@
 // Bound on this card: bytes. It reads R * D values and D scales and writes
 // R * D values, with about four f32 operations per value: at the forward's
 // (8,192, 5,120) bf16 that is 168 MB, 0.050 ms at 3.35 TB/s, against
-// 0.0026 ms of f32 arithmetic. Design: one warp per row, eight rows per
-// 256-thread block, so any R launches ceil(R / 8) blocks and nothing is
-// padded. The warp reads its row in 16-byte vectors when D and every
-// pointer allow it (D % 8 == 0 for bf16, D % 4 == 0 for f32; 5,120 is),
-// so neighbouring lanes read neighbouring 16 bytes; the sum of squares is
-// a warp-shuffle reduction in f32. The second pass re-reads the row, which
-// the first pass has just brought into L1 (a 10 KB row), so device memory
-// sees each value about once.
+// 0.0026 ms of f32 arithmetic. So each value must cross device memory once
+// each way. Design: one block of 128 threads per row, the grid one block
+// per row (many short blocks that the hardware hands out as others finish,
+// so the last wave is at most one row long). A thread reads its share of
+// the row in 16-byte vectors when D and the pointers allow it (D % 8 == 0
+// for bf16, D % 4 == 0 for f32), neighbouring threads on neighbouring
+// vectors, issues all its loads before it adds, and keeps them in
+// registers through the reduction, so the row is read from device memory
+// once: at D = 5,120 that is 5 vectors a thread in bf16 and 10 in f32. The
+// sum of squares is a warp-shuffle reduction, then one across the four
+// warps through shared memory, in a fixed order. Rows longer than the
+// register budget (kMaxUnits units a thread: bf16 D > 12,288, f32
+// D > 6,144) take the two-pass form of the same kernel, which reads the
+// row again for the output.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kRowsPerBlock = kThreads / 32;
+constexpr int kThreads = 128;
+constexpr int kWarps = kThreads / 32;
+// units (16-byte vectors, or single values when D is not a vector
+// multiple) a thread holds in registers; wider rows take two passes
+constexpr int kMaxUnits = 12;
+// at most this many blocks; each strides over the rows past it
+constexpr long long kMaxGrid = 1 << 30;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
@@ -41,89 +53,182 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);  // round to nearest even, as torch's .to()
 }
 
-template <typename T, bool kVec>
-__global__ void rmsnorm_kernel(const T* __restrict__ x,
-                               const T* __restrict__ scale,
-                               T* __restrict__ out, int64_t rows, int d,
-                               float eps) {
-  constexpr int V = 16 / sizeof(T);  // values per 16-byte vector
-  const int lane = threadIdx.x & 31;
-  const int64_t row = (int64_t)blockIdx.x * kRowsPerBlock + (threadIdx.x >> 5);
-  if (row >= rows) return;
-  const T* xr = x + row * d;
-  T* orow = out + row * d;
+// A load of B bytes in one instruction.
+template <int B> struct Word;
+template <> struct Word<16> { using type = uint4; };
+template <> struct Word<8> { using type = uint2; };
+template <> struct Word<4> { using type = unsigned int; };
+template <> struct Word<2> { using type = unsigned short; };
 
-  float ss = 0.f;
-  if (kVec) {
-    const uint4* xv = reinterpret_cast<const uint4*>(xr);
-    for (int i = lane; i < d / V; i += 32) {
-      const uint4 u = xv[i];
-      const T* e = reinterpret_cast<const T*>(&u);
-#pragma unroll
-      for (int j = 0; j < V; ++j) {
-        const float f = to_f(e[j]);
-        ss += f * f;
-      }
-    }
-  } else {
-    for (int i = lane; i < d; i += 32) {
-      const float f = to_f(xr[i]);
-      ss += f * f;
-    }
+// One unit of N values of T: a 16-byte vector, or one value (N = 1).
+template <typename T, int N>
+struct Unit {
+  using W = typename Word<N * sizeof(T)>::type;
+  W w;
+  __device__ __forceinline__ float get(int j) const {
+    return to_f(reinterpret_cast<const T*>(&w)[j]);
   }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, o);
-  const float inv = rsqrtf(ss / (float)d + eps);
+  __device__ __forceinline__ void set(int j, float v) {
+    reinterpret_cast<T*>(&w)[j] = from_f<T>(v);
+  }
+};
 
-  if (kVec) {
-    const uint4* xv = reinterpret_cast<const uint4*>(xr);
-    const uint4* sv = reinterpret_cast<const uint4*>(scale);
-    uint4* ov = reinterpret_cast<uint4*>(orow);
-    for (int i = lane; i < d / V; i += 32) {
-      const uint4 u = xv[i];
-      const uint4 s = __ldg(sv + i);
-      const T* e = reinterpret_cast<const T*>(&u);
-      const T* g = reinterpret_cast<const T*>(&s);
-      uint4 w;
-      T* o = reinterpret_cast<T*>(&w);
+// The N scale values from p as f32, in loads of up to 16 bytes (p is
+// aligned to the smaller of 16 and N * sizeof(S) bytes).
+template <typename S, int N>
+__device__ __forceinline__ void load_scale(const S* __restrict__ p,
+                                           float (&g)[N]) {
+  constexpr int kBytes = N * sizeof(S) < 16 ? N * sizeof(S) : 16;
+  constexpr int kPer = kBytes / sizeof(S);
+  using W = typename Word<kBytes>::type;
 #pragma unroll
-      for (int j = 0; j < V; ++j) o[j] = from_f<T>((to_f(e[j]) * inv) * to_f(g[j]));
-      ov[i] = w;
-    }
-  } else {
-    for (int i = lane; i < d; i += 32) {
-      orow[i] = from_f<T>((to_f(xr[i]) * inv) * to_f(__ldg(scale + i)));
+  for (int w = 0; w < N / kPer; ++w) {
+    const W u = __ldg(reinterpret_cast<const W*>(p) + w);
+    const S* e = reinterpret_cast<const S*>(&u);
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) g[w * kPer + j] = to_f(e[j]);
+  }
+}
+
+// The block's sum of v, on every thread, in the same order everywhere.
+__device__ __forceinline__ float block_sum(float v, float* red) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  float t = 0.f;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) t += red[w];
+  __syncthreads();  // red is written again by the next row
+  return t;
+}
+
+template <typename T, typename S, int N>
+__device__ __forceinline__ void store_unit(const Unit<T, N>& u,
+                                           const S* __restrict__ scale,
+                                           Unit<T, N>* __restrict__ orow,
+                                           int i, float inv) {
+  float g[N];
+  load_scale<S, N>(scale + (int64_t)i * N, g);
+  Unit<T, N> o;
+#pragma unroll
+  for (int j = 0; j < N; ++j) o.set(j, (u.get(j) * inv) * g[j]);
+  orow[i] = o;
+}
+
+// U > 0: each thread holds up to U units of the row in registers (units
+// i = threadIdx.x + k * kThreads); U == 0: two passes over the row.
+template <typename T, typename S, int N, int U>
+__global__ void __launch_bounds__(kThreads)
+rmsnorm_kernel(const T* __restrict__ x, const S* __restrict__ scale,
+               T* __restrict__ out, int64_t rows, int d, float eps) {
+  using V = Unit<T, N>;
+  __shared__ float red[kWarps];
+  const int units = d / N;
+  for (int64_t row = blockIdx.x; row < rows; row += gridDim.x) {
+    const V* xr = reinterpret_cast<const V*>(x + row * d);
+    V* orow = reinterpret_cast<V*>(out + row * d);
+    float ss = 0.f;
+    if constexpr (U > 0) {
+      V buf[U];
+#pragma unroll
+      for (int k = 0; k < U; ++k) {
+        const int i = threadIdx.x + k * kThreads;
+        if (i < units) buf[k] = xr[i];
+      }
+#pragma unroll
+      for (int k = 0; k < U; ++k) {
+        if (threadIdx.x + k * kThreads < units) {
+#pragma unroll
+          for (int j = 0; j < N; ++j) {
+            const float f = buf[k].get(j);
+            ss += f * f;
+          }
+        }
+      }
+      const float inv = rsqrtf(block_sum(ss, red) / (float)d + eps);
+#pragma unroll
+      for (int k = 0; k < U; ++k) {
+        const int i = threadIdx.x + k * kThreads;
+        if (i < units) store_unit<T, S, N>(buf[k], scale, orow, i, inv);
+      }
+    } else {
+      for (int i = threadIdx.x; i < units; i += kThreads) {
+        const V u = xr[i];
+#pragma unroll
+        for (int j = 0; j < N; ++j) {
+          const float f = u.get(j);
+          ss += f * f;
+        }
+      }
+      const float inv = rsqrtf(block_sum(ss, red) / (float)d + eps);
+      for (int i = threadIdx.x; i < units; i += kThreads) {
+        const V u = xr[i];
+        store_unit<T, S, N>(u, scale, orow, i, inv);
+      }
     }
   }
 }
 
-template <typename T>
-void launch(const void* x, const void* scale, void* out, long long rows,
-            int d, float eps, int vec, cudaStream_t stream) {
-  const unsigned grid = (unsigned)((rows + kRowsPerBlock - 1) / kRowsPerBlock);
-  if (vec) {
-    rmsnorm_kernel<T, true><<<grid, kThreads, 0, stream>>>(
-        (const T*)x, (const T*)scale, (T*)out, rows, d, eps);
+template <typename T, typename S, int N>
+void launch_units(const void* x, const void* scale, void* out,
+                  long long rows, int d, float eps, cudaStream_t stream) {
+  const unsigned grid = (unsigned)(rows < kMaxGrid ? rows : kMaxGrid);
+  const long long per_thread = ((long long)(d / N) + kThreads - 1) / kThreads;
+  const T* xp = (const T*)x;
+  const S* sp = (const S*)scale;
+  T* op = (T*)out;
+#define REPRO_RMSNORM(U) \
+  rmsnorm_kernel<T, S, N, U><<<grid, kThreads, 0, stream>>>(xp, sp, op, rows, d, eps)
+  if (per_thread <= 4) {
+    REPRO_RMSNORM(4);
+  } else if (per_thread <= 8) {
+    REPRO_RMSNORM(8);
+  } else if (per_thread <= kMaxUnits) {
+    REPRO_RMSNORM(kMaxUnits);
   } else {
-    rmsnorm_kernel<T, false><<<grid, kThreads, 0, stream>>>(
-        (const T*)x, (const T*)scale, (T*)out, rows, d, eps);
+    REPRO_RMSNORM(0);
+  }
+#undef REPRO_RMSNORM
+}
+
+template <typename T, typename S>
+void launch(const void* x, const void* scale, void* out, long long rows,
+            int d, float eps, cudaStream_t stream) {
+  constexpr int kVec = 16 / sizeof(T);
+  // scale's loads per unit are min(16, kVec * sizeof(S)) bytes
+  constexpr uintptr_t kScaleAlign =
+      kVec * sizeof(S) < 16 ? kVec * sizeof(S) : 16;
+  const bool vec = d % kVec == 0 &&
+                   (((uintptr_t)x | (uintptr_t)out) & 15u) == 0 &&
+                   ((uintptr_t)scale & (kScaleAlign - 1)) == 0;
+  if (vec) {
+    launch_units<T, S, kVec>(x, scale, out, rows, d, eps, stream);
+  } else {
+    launch_units<T, S, 1>(x, scale, out, rows, d, eps, stream);
   }
 }
 
 }  // namespace
 
-// x, out: rows x d, contiguous; scale: d. dtype 0 = f32, 1 = bf16. vec = 1
-// only when d is a multiple of the 16-byte vector and every pointer is
-// 16-byte aligned. Returns cudaGetLastError() after the launch.
+// x, out: rows x d, contiguous; scale: d, contiguous. x_bf16 / scale_bf16:
+// 1 = bf16, 0 = f32. The 16-byte vector route is taken when d and every
+// pointer allow it. Returns cudaGetLastError() after the launch.
 extern "C" int repro_rmsnorm(const void* x, const void* scale, void* out,
-                             long long rows, int d, float eps, int dtype,
-                             int vec, void* stream) {
+                             long long rows, int d, float eps, int x_bf16,
+                             int scale_bf16, void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
   if (rows > 0 && d > 0) {
-    if (dtype == 1) {
-      launch<__nv_bfloat16>(x, scale, out, rows, d, eps, vec,
-                            (cudaStream_t)stream);
+    if (x_bf16) {
+      if (scale_bf16) {
+        launch<__nv_bfloat16, __nv_bfloat16>(x, scale, out, rows, d, eps, s);
+      } else {
+        launch<__nv_bfloat16, float>(x, scale, out, rows, d, eps, s);
+      }
+    } else if (scale_bf16) {
+      launch<float, __nv_bfloat16>(x, scale, out, rows, d, eps, s);
     } else {
-      launch<float>(x, scale, out, rows, d, eps, vec, (cudaStream_t)stream);
+      launch<float, float>(x, scale, out, rows, d, eps, s);
     }
   }
   return (int)cudaGetLastError();

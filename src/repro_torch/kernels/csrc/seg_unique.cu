@@ -92,6 +92,8 @@ __global__ void seg_scatter_kernel(const uint8_t* __restrict__ nw,
 
 }  // namespace
 
+extern "C" int repro_scan_tile() { return kTile; }
+
 // new_, valid: n bool bytes; src, counts: cap int32 (zeroed by the caller);
 // slot: n int32; n_out: one int32; tiles: ceil(n / kTile) int32 scratch.
 // Returns cudaGetLastError().

@@ -1,12 +1,7 @@
 """Public wrapper: any leading dims (no row padding: the kernel takes any
-number of rows)."""
+number of rows, and the wrapper any leading shape, without a reshape)."""
 from __future__ import annotations
 
-from repro_torch.kernels.rmsnorm.rmsnorm import rmsnorm_cuda
+from repro_torch.kernels.rmsnorm.rmsnorm import rmsnorm_cuda as rmsnorm
 
-
-def rmsnorm(x, scale, eps=1e-5):
-    """x (..., D), scale (D,) -> (..., D): the kernel on a CUDA tensor, its
-    plain version on a CPU tensor."""
-    shape = x.shape
-    return rmsnorm_cuda(x.reshape(-1, shape[-1]), scale, eps).reshape(shape)
+__all__ = ["rmsnorm"]

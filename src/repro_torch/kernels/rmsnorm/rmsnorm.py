@@ -2,9 +2,10 @@
 (``rmsnorm_pallas``).
 
   * :func:`rmsnorm_cuda` — the hand-written kernel (``csrc/rmsnorm.cu``):
-    x (R, D) and scale (D,), both bf16 or both f32, any R and D. It takes
-    its plain version for a CPU tensor and launches the kernel for a CUDA
-    tensor; anything else raises.
+    x (..., D) bf16 or f32 and scale (D,) bf16 or f32, of either type
+    whatever x's (the TPU kernel casts any scale to f32), any number of
+    rows and any D. It takes its plain version for a CPU tensor and
+    launches the kernel for a CUDA tensor; anything else raises.
   * :func:`rmsnorm_ref` — the plain version, the same function: the mean
     of squares, the normalisation and the scale in f32, one rounding to
     x's type (the TPU kernel's body, ``rmsnorm.py:14-19``).
@@ -12,17 +13,29 @@
 The JAX model stack's own ``layers.rmsnorm`` rounds to x's type before it
 multiplies by the scale; that equals this function when the scale is 1
 (every norm scale at init) and otherwise differs by at most one rounding.
+
+The decode step calls the wrapper 97 times, so its host time counts: it
+checks with cheap tensor queries, copies only what is not contiguous, and
+launches through :func:`build.launch`.
 """
 from __future__ import annotations
-
-import ctypes
 
 import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.dispatch import on_cuda
 
+#: kernel types -> the C entry's type flag (1 = bf16, 0 = f32)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+#: the C entry ``repro_rmsnorm``, bound at the first launch
+_kernel = None
+
+
+def _bind():
+    global _kernel
+    _kernel = build.library().repro_rmsnorm
+    return _kernel
 
 
 def rmsnorm_ref(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5):
@@ -34,32 +47,30 @@ def rmsnorm_ref(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5):
 
 
 def rmsnorm_cuda(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5):
-    """x (R, D), scale (D,) -> (R, D) in x's type."""
-    if not on_cuda(x):
+    """x (..., D), scale (D,) -> x's shape in x's type."""
+    if not (x.is_cuda or on_cuda(x)):
         return rmsnorm_ref(x, scale, eps)
-    if x.dim() != 2 or x.dtype not in DTYPES:
-        raise TypeError(f"x: expected 2-d bf16 or f32, got {x.dim()}-d "
-                        f"{x.dtype}")
-    r, d = x.shape
-    if (scale.dim() != 1 or scale.shape[0] != d or scale.dtype != x.dtype
-            or scale.device != x.device):
-        raise TypeError(f"scale: expected ({d},) {x.dtype} on {x.device}, got "
-                        f"{tuple(scale.shape)} {scale.dtype} on {scale.device}")
-    x, scale = x.contiguous(), scale.contiguous()
+    xt, st = DTYPES.get(x.dtype), DTYPES.get(scale.dtype)
+    if xt is None or x.dim() == 0:
+        raise TypeError(f"x: expected bf16 or f32 with a last dimension, got "
+                        f"{x.dim()}-d {x.dtype}")
+    d = x.size(-1)
+    dev = x.get_device()
+    if (st is None or scale.dim() != 1 or scale.size(0) != d
+            or scale.get_device() != dev):
+        raise TypeError(f"scale: expected ({d},) bf16 or f32 on {x.device}, "
+                        f"got {tuple(scale.shape)} {scale.dtype} on "
+                        f"{scale.device}")
+    if not x.is_contiguous():
+        x = x.contiguous()
+    if not scale.is_contiguous():
+        scale = scale.contiguous()
     out = torch.empty_like(x)
-    if r == 0 or d == 0:
+    rows = x.numel() // d if d else 0
+    if rows == 0:
         return out
     if d >= 2**31:
         raise ValueError(f"D = {d} exceeds int32")
-    per_vec = 16 // x.element_size()
-    vec = d % per_vec == 0 and all(
-        t.data_ptr() % 16 == 0 for t in (x, scale, out))
-    lib = build.library()
-    with torch.cuda.device(x.device):
-        build.count_launch("rmsnorm")
-        build.check(lib.repro_rmsnorm(
-            x.data_ptr(), scale.data_ptr(), out.data_ptr(), r, d,
-            ctypes.c_float(eps), DTYPES[x.dtype], int(vec),
-            build.stream_of(x),
-        ), "rmsnorm")
+    build.launch("rmsnorm", _kernel or _bind(), dev, x.data_ptr(),
+                 scale.data_ptr(), out.data_ptr(), rows, d, eps, xt, st)
     return out

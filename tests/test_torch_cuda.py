@@ -287,16 +287,22 @@ def test_partitioned_card_run_equals_cpu_run(cuda_device, app):
 MODEL_DTYPES = [torch.float32, torch.bfloat16]
 
 
+@pytest.mark.parametrize("scale_dtype", MODEL_DTYPES)
 @pytest.mark.parametrize("dtype", MODEL_DTYPES)
-@pytest.mark.parametrize("rows,d", [(8192, 5120), (4, 5120), (7, 100)])
-def test_rmsnorm_kernel_matches_plain_version(cuda_device, rows, d, dtype):
+@pytest.mark.parametrize("rows,d", [(8192, 5120), (4, 5120), (7, 100),
+                                    (64, 8192), (64, 16384), (5, 5121)])
+def test_rmsnorm_kernel_matches_plain_version(cuda_device, rows, d, dtype,
+                                              scale_dtype):
     """Kernel and plain version both compute in f32 and round once: f32
-    1e-5 (summation order), bf16 one rounding step (relative 2^-7). (7, 100)
-    takes the scalar path (D % 8 != 0)."""
+    1e-5 (summation order), bf16 one rounding step (relative 2^-7). The
+    scale may be of either type, as the TPU kernel takes it. (7, 100) and
+    (5, 5121) take the scalar units (D not a vector multiple); bf16 16,384,
+    f32 8,192 and up, and the scalar 5,121 are past the register budget
+    and take the two-pass form."""
     g = torch.Generator(device=cuda_device).manual_seed(0)
     x = torch.randn((rows, d), generator=g, device=cuda_device).to(dtype)
     scale = (1 + 0.1 * torch.randn((d,), generator=g,
-                                   device=cuda_device)).to(dtype)
+                                   device=cuda_device)).to(scale_dtype)
     before = build.LAUNCHES["rmsnorm"]
     got = rmsnorm_cuda(x, scale)
     want = rmsnorm_ref(x, scale)
@@ -308,6 +314,54 @@ def test_rmsnorm_kernel_matches_plain_version(cuda_device, rows, d, dtype):
     else:
         torch.testing.assert_close(got.float(), want.float(), atol=0,
                                    rtol=2**-7)
+
+
+def test_rmsnorm_kernel_runs_on_the_current_stream(cuda_device):
+    """The raw stream handle the wrappers launch on is PyTorch's current
+    stream, the default one and a side stream; a call on the side stream
+    (leading dims kept, a strided view copied) matches the plain version."""
+    side = torch.cuda.Stream(cuda_device)
+    dev = cuda_device.index or 0
+    assert build.raw_stream(dev) == torch.cuda.current_stream().cuda_stream
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    x = torch.randn((2, 4, 2 * 5120), generator=g,
+                    device=cuda_device).to(torch.bfloat16)[..., ::2]
+    scale = torch.randn((5120,), generator=g, device=cuda_device)
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        assert build.raw_stream(dev) == side.cuda_stream
+        assert build.raw_stream(dev) == torch.cuda.current_stream().cuda_stream
+        got = rmsnorm_cuda(x, scale)
+    side.synchronize()
+    want = rmsnorm_ref(x, scale)
+    assert got.shape == x.shape and got.dtype == x.dtype
+    torch.testing.assert_close(got.float(), want.float(), atol=0, rtol=2**-7)
+
+
+@pytest.mark.parametrize("mask", ["none", "all", "random"])
+@pytest.mark.parametrize("size", ["0", "1", "tile", "tile+1", "many tiles"])
+def test_stream_compact_matches_plain_version(cuda_device, size, mask):
+    """Bit for bit against the plain version: B of 0, 1, one tile, one tile
+    + 1 and 4 x 132 tiles + 77 (chains of look-backs over more tiles than
+    the card holds at once); masks all false, all true and random at 0.3;
+    out_cap 0, below the count and above it; the flags contiguous and as a
+    view at byte offset 3 (byte-wise loads). Each call runs twice on fresh
+    scratch and answers the same."""
+    tile = build.library().repro_compact_tile()
+    b = {"0": 0, "1": 1, "tile": tile, "tile+1": tile + 1,
+         "many tiles": 4 * 132 * tile + 77}[size]
+    g = torch.Generator(device=cuda_device).manual_seed(b)
+    flags = torch.rand(b + 3, generator=g, device=cuda_device) < 0.3
+    if mask != "random":
+        flags.fill_(mask == "all")
+    for keep in (flags[:b], flags[3:]):
+        kept = int(keep.sum())
+        for cap in (0, kept // 2, kept + 5):
+            want = compact.stream_compact_ref(keep, cap)
+            for _ in range(2):
+                idx, count = compact.stream_compact_cuda(keep, cap)
+                assert torch.equal(idx, want[0]) and torch.equal(count, want[1])
+            assert count.shape == () and int(count) == kept
 
 
 def _flash_inputs(g, dev, dtype, b, sq, sk, h, kv, d, layout):
@@ -390,8 +444,9 @@ def test_flash_kernel_reads_strided_inputs(cuda_device):
 
 def test_model_kernel_wrappers_raise_on_what_they_do_not_take(cuda_device):
     x = torch.ones((4, 64), device=cuda_device, dtype=torch.bfloat16)
-    with pytest.raises(TypeError):        # scale of another type
-        rmsnorm_cuda(x, torch.ones(64, device=cuda_device))
+    scale = torch.full((64,), 1.5, device=cuda_device)
+    # a scale of the other kernel type is taken, as the TPU kernel takes it
+    assert torch.equal(rmsnorm_cuda(x, scale), rmsnorm_ref(x, scale))
     with pytest.raises(TypeError):        # fp16 is not a kernel type
         rmsnorm_cuda(x.half(), torch.ones(64, device=cuda_device).half())
     q = torch.ones((1, 8, 4, 12), device=cuda_device)

@@ -105,6 +105,24 @@ def test_rmsnorm_plain_version_matches_reference_kernel(shape, dtype):
         _f32(rmsnorm_ref(xt.reshape(-1, shape[-1]), st)))
 
 
+@pytest.mark.parametrize("dtype,scale_dtype", [("bfloat16", "float32"),
+                                               ("float32", "bfloat16")])
+def test_rmsnorm_takes_a_scale_of_another_type(dtype, scale_dtype):
+    """As the TPU kernel casts any scale to f32, the port takes a scale of
+    either kernel type for x of either, and answers in x's type."""
+    rng = np.random.default_rng(2)
+    x = rng.standard_normal((3, 5, 640)).astype(np.float32)
+    s = (1.0 + 0.1 * rng.standard_normal(640)).astype(np.float32)
+    (xj, xt), (sj, st) = _both(x, dtype), _both(s, scale_dtype)
+    want = _f32(jrmsnorm(xj, sj, interpret=True))
+    got = rmsnorm(xt, st)
+    assert got.shape == xt.shape and got.dtype == xt.dtype
+    if dtype == "float32":
+        np.testing.assert_allclose(_f32(got), want, atol=1e-6, rtol=1e-5)
+    else:
+        np.testing.assert_allclose(_f32(got), want, atol=0, rtol=2**-7)
+
+
 def test_rmsnorm_equals_model_stack_at_unit_scale():
     """The reference's model-stack rmsnorm rounds before the scale: with the
     scale at 1 (every norm at init) the two are equal bit for bit."""
