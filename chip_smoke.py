@@ -18,6 +18,9 @@ Phases, in order; any failure exits non-zero and prints no result:
      one tile, one tile + 1 and 4 x 132 tiles, masks all false, all true
      and random, out_cap 0, below and above the count, flags at byte
      offset 3, each case twice, and timed at ``halo_unique``'s shape;
+     the radix sort of the chunk's child codes whole and kernel by kernel
+     (the histogram, then every launch of the scatter kernel from the
+     state the launches before it left), with the library sorts;
      then one chunk program per route, whole graph and partitioned, under
      sync debug mode "error";
   4. the card port against the CPU port on ``mico_like(0.005)``: motifs and
@@ -35,7 +38,9 @@ Phases, in order; any failure exits non-zero and prints no result:
      whole-graph runs; the launch counts are zeroed
      just before each run and read just after, and every kernel must have
      launched. The refine row is then timed on the distinct table that
-     level 2 of the last run's step 3 refined;
+     level 2 of the last run's step 3 refined, and the radix sort, as in
+     phase 3, on the canonical codes that level 2 re-bins (33,554,432
+     rows);
   6. the model zoo's dense decoder (``repro_torch.models``):
      a. RMSNorm and flash attention against their plain versions at
         qwen2.5-14b's shapes (the forward's 8,192 x 5,120 rows and a decode
@@ -72,6 +77,14 @@ It prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 (per-step times, peak bytes, launches per run) to PATH. It needs the
 repository's ``src`` beside it and a CUDA device; it imports neither JAX
 nor the JAX package.
+
+    python3 chip_smoke.py --radix-ab PARENT_SRC [--json PATH]
+
+runs only the parent-against-change comparison of the radix sort: the
+whole sort of ``PARENT_SRC``'s ``repro_torch`` (for example a ``git
+archive`` of the parent commit unpacked under ``archive_check/``) and of
+this checkout's, at the chunk and level-2 shapes of phases 3 and 5, in
+turns (parent, change, change, parent), each in a process of its own.
 """
 from __future__ import annotations
 
@@ -293,11 +306,43 @@ def compact_cases(torch, compact, build):
     return err
 
 
+def first_chunk(torch, np, dg, g) -> dict:
+    """The first size-2 chunk of ``g`` (its first ``CHUNK`` edges) through
+    the chunk program's kernel route: the expansion (``cand``, ``valid``,
+    ``keep3``), the kept children compacted to ``out_cap`` rows, and their
+    quick codes (``qp``), the rows that the radix bin sorts."""
+    from repro_torch.core import explore, pattern
+    from repro_torch.core.runtime.config import next_pow2
+    from repro_torch.kernels.canonical_check.canonical_check import (
+        expand_canonical_cuda,
+    )
+
+    dev = dg.device
+    members = torch.from_numpy(g.edges[:CHUNK].astype(np.int32)).to(dev)
+    n_valid = torch.full((CHUNK,), 2, dtype=torch.int32, device=dev)
+    c, k, d = members.shape[0], members.shape[1], dg.max_degree
+    cand, valid, keep3 = expand_canonical_cuda(members, n_valid, dg.nbr,
+                                               dg.adj_bits)
+    flat_rows = torch.arange(c, dtype=torch.int32,
+                             device=dev).repeat_interleave(k * d)
+    keep = keep3.reshape(-1)
+    kept = int(keep.sum())
+    out_cap = next_pow2(kept)
+    children, count = explore.compact(
+        members, explore.Expansion(flat_rows, cand.reshape(-1), keep,
+                                   None, None),
+        keep, out_cap, use_kernel=True)
+    child_nv = torch.where(torch.arange(out_cap, device=dev) < count, k + 1,
+                           0).to(torch.int32)
+    qp = pattern.quick_pattern_vertex(dg, children, child_nv)
+    return dict(members=members, n_valid=n_valid, cand=cand, valid=valid,
+                keep3=keep3, flat_rows=flat_rows, keep=keep, kept=kept,
+                out_cap=out_cap, child_nv=child_nv, qp=qp)
+
+
 def kernel_checks(torch, np, dg, g):
     """Phase 3: every kernel against its plain version at main-path shapes
     (the first size-2 chunk of mico_like(0.1) and what it produces)."""
-    from repro_torch.core import explore, pattern
-    from repro_torch.core.runtime.config import next_pow2
     from repro_torch.kernels import aggregate, build, compact
     from repro_torch.kernels.canonical_check.canonical_check import (
         canonical_check_cuda, canonical_check_ref, expand_canonical_cuda,
@@ -305,15 +350,15 @@ def kernel_checks(torch, np, dg, g):
     )
 
     dev = dg.device
-    members = torch.from_numpy(g.edges[:CHUNK].astype(np.int32)).to(dev)
-    n_valid = torch.full((CHUNK,), 2, dtype=torch.int32, device=dev)
+    ch = first_chunk(torch, np, dg, g)
+    members, n_valid = ch["members"], ch["n_valid"]
     c, k, d = members.shape[0], members.shape[1], dg.max_degree
     w = dg.adj_bits.shape[1]
     n_member_rows = int(torch.unique(members).numel())
     rows = []
 
     # -- expand_canonical: members (4096, 2), D = max degree ----------------
-    got = expand_canonical_cuda(members, n_valid, dg.nbr, dg.adj_bits)
+    got = (ch["cand"], ch["valid"], ch["keep3"])
     want = expand_canonical_ref(members, n_valid, dg.nbr, dg.adj_bits)
     torch.cuda.synchronize()
     err = max_abs_err(torch, got, want)
@@ -328,11 +373,10 @@ def kernel_checks(torch, np, dg, g):
         "expand_canonical", "src/repro_torch/kernels/csrc/expand_canonical.cu",
         "src/repro/kernels/canonical_check/canonical_check.py:252",
         err, timed, plain, nbytes, None))
-    cand, valid, keep3 = got
+    cand, flat_rows = ch["cand"], ch["flat_rows"]
     del want
 
     # -- canonical_check: the unfused route's flat batch --------------------
-    flat_rows = torch.arange(c, dtype=torch.int32, device=dev).repeat_interleave(k * d)
     fm, fn_, fc = members[flat_rows], n_valid[flat_rows], cand.reshape(-1)
     b = fc.shape[0]
     got = (canonical_check_cuda(fm, fn_, fc, dg.adj_bits),)
@@ -354,9 +398,7 @@ def kernel_checks(torch, np, dg, g):
     del fm, fn_, fc, got, want
 
     # -- stream_compact: the chunk's keep mask -----------------------------
-    keep = keep3.reshape(-1)
-    kept = int(keep.sum())
-    out_cap = next_pow2(kept)
+    keep, kept, out_cap = ch["keep"], ch["kept"], ch["out_cap"]
     errs = []
     for cap in (out_cap, CHUNK):        # main-path capacity, and overflow
         got = compact.stream_compact_cuda(keep, cap)
@@ -378,14 +420,7 @@ def kernel_checks(torch, np, dg, g):
     log(f"  stream_compact: B={keep.numel()} kept={kept} out_cap={out_cap}")
 
     # -- seg_unique: the chunk's children codes, sorted ---------------------
-    children, count = explore.compact(
-        members, explore.Expansion(flat_rows, cand.reshape(-1), keep,
-                                   None, None),
-        keep, out_cap, use_kernel=True,
-    )
-    child_nv = torch.where(torch.arange(out_cap, device=dev) < count, k + 1,
-                           0).to(torch.int32)
-    qp = pattern.quick_pattern_vertex(dg, children, child_nv)
+    qp, child_nv = ch["qp"], ch["child_nv"]
     sc, sv, _ = aggregate.sort_codes(qp.codes, child_nv > 0)
     new = sv & torch.cat([torch.ones(1, dtype=torch.bool, device=dev),
                           (sc[1:] != sc[:-1]).any(1)])
@@ -418,83 +453,183 @@ def kernel_checks(torch, np, dg, g):
     # chunk program gets them ----------------------------------------------
     codes, cvalid = qp.codes, child_nv > 0
     extra = {"radix": radix_checks(torch, codes, cvalid, rows)}
-    del qp, codes, cvalid, children
+    del qp, codes, cvalid, ch
     torch.cuda.empty_cache()
     extra["refine_synthetic"] = refine_synthetic_checks(torch, np, dev)
     build.reset_launches()
     return rows, extra
 
 
-def radix_checks(torch, codes, valid, rows):
-    """The radix sort against its plain version (codes, valid and order
-    exactly), then its two kernels one varying pass at a time: pass
-    (w1, byte 0), whose input order on the main path is the identity (the
-    w2 passes before it are constant and skipped)."""
-    from repro_torch.kernels import aggregate, radix_bin
+def radix_pass_bytes(b, i, gather, carry, last, word):
+    """Bytes one pass of the scatter kernel must move: the order read
+    (not on the first pass, which reads the rows in place), the key read
+    coalesced or, on a word's first pass, the word (the flag: a byte)
+    gathered, the order written, when the next pass sorts by the same
+    word the key written, and on the last pass the rows' codes and valid
+    flags read and written in the sorted order."""
+    key = (1 if word == 3 else 4) if gather else 4
+    return b * ((4 if i else 0) + key + 4 + (4 if carry else 0)
+                + (2 * 25 if last else 0))
+
+
+def time_after(torch, first, fn, first_timed):
+    """A :func:`time_call` record of ``fn()``, a launch that must follow
+    ``first()`` (whose record is ``first_timed``): the pair timed together,
+    less ``first``'s times."""
+    pair = time_call(torch, lambda: (first(), fn()), device=True)
+    dev = (pair["device_ms"] - first_timed["device_ms"]
+           if pair["device_ms"] and first_timed["device_ms"] else None)
+    return dict(pair, ms=pair["ms"] - first_timed["ms"],
+                host_ms=pair["host_ms"] - first_timed["host_ms"],
+                device_ms=dev, pair_ms=pair["ms"])
+
+
+def radix_case(torch, codes, valid, label):
+    """The radix sort of one batch: the whole sort and each kernel against
+    its plain version (exact), and their times. The histogram once; the
+    scatter kernel at every launch of the plan, each from the state the
+    launches before it left (so every pass after the first reads a
+    non-identity order), timed after the histogram that clears its
+    scratch (:func:`time_after`), and one launch past the plan. Also the
+    library sorts."""
+    from repro_torch.kernels import aggregate, radix_bin as R
 
     b = codes.shape[0]
-    got = radix_bin.radix_sort_codes(codes, valid)
-    want = radix_bin.radix_sort_codes_ref(codes, valid)
+    dev = codes.device
+    got = R.radix_sort_codes(codes, valid)
+    want = R.radix_sort_codes_ref(codes, valid)
     torch.cuda.synchronize()
     err = max_abs_err(torch, got, want)
-    need(err == 0, f"radix_sort_codes differs from its plain version ({err})")
+    need(err == 0, f"radix_sort_codes differs from its plain version at "
+         f"{label} ({err})")
     del got, want
-    sort_ms = time_ms(torch, lambda: radix_bin.radix_sort_codes(codes, valid))
-    sort_plain = time_ms(torch, lambda: radix_bin.radix_sort_codes_ref(
+    st = R.RadixScratch(b, dev)
+    R.radix_hist_cuda(codes, valid, st)
+    ref = R.radix_digit_counts_ref(codes, valid)
+    torch.cuda.synchronize()
+    herr = max_abs_err(torch, (st.plan, st.counts, st.bases), ref)
+    need(herr == 0, f"radix_hist differs from its plain version at {label} "
+         f"({herr})")
+    plan = st.plan.tolist()
+    nvary = plan[0]
+
+    def hist():
+        R.radix_hist_cuda(codes, valid, st)
+
+    h_timed = time_call(torch, hist, device=True)
+    passes = [R._PASSES[p] for p in plan[1:1 + nvary]]
+    words = [w for w, _ in passes]
+    launches, serr = [], 0
+    for i, (word, shift) in enumerate(passes):
+        gather = i == 0 or words[i - 1] != word
+        last = i == nvary - 1
+        carry = not last and words[i + 1] == word
+        order = (torch.arange(b, dtype=torch.int32, device=dev) if i == 0
+                 else st.orders[i & 1].clone())
+        keys = (R._word(codes, valid, word)[order.long()] if gather
+                else st.keys[i & 1].long() & 0xFFFFFFFF)
+        R.radix_scatter_cuda(codes, valid, st, i)
+        k_ref, o_ref = R.radix_pass_ref(keys, order, shift)
+        if last:
+            got = [st.out, st.codes_out, st.valid_out]
+            exp = [o_ref, codes[o_ref], valid[o_ref]]
+        else:
+            got = [st.orders[(i + 1) & 1]] + (
+                [st.keys[(i + 1) & 1].long() & 0xFFFFFFFF] if carry else [])
+            exp = [o_ref] + ([k_ref] if carry else [])
+        torch.cuda.synchronize()
+        e = max_abs_err(torch, got, exp)
+        need(e == 0, f"radix_scatter launch {i} (pass {word, shift}) "
+             f"differs from its plain version at {label} ({e})")
+        serr = max(serr, e)
+        timed = time_after(torch, hist, lambda: R.radix_scatter_cuda(
+            codes, valid, st, i), h_timed)
+        plain = time_ms(torch, lambda: R.radix_pass_ref(keys, order, shift))
+        digits = (keys >> shift) & 0xFF
+        lib = time_ms(torch, lambda: torch.sort(digits, stable=True))
+        nbytes = radix_pass_bytes(b, i, gather, carry, last, word)
+        launches.append({"launch": i, "pass": [word, shift],
+                         "gather": gather, "carry": carry, "last": last,
+                         "timed": timed, "plain_ms": plain,
+                         "library_ms": lib, "bytes": nbytes,
+                         "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3})
+        log(f"  radix {label} launch {i} pass {(word, shift)} "
+            f"{'gather' if gather else 'carried'}"
+            f"{' +keys' if carry else ''}{' +outputs' if last else ''}: "
+            f"{timed['ms']:.4f} ms, plain "
+            f"{plain:.4f} ms, bound {launches[-1]['bound_ms']:.4f} ms, "
+            f"torch.sort of its digits {lib:.4f} ms")
+        del order, keys, k_ref, o_ref, got, exp, digits
+    idle = (time_call(torch, lambda: R.radix_scatter_cuda(
+        codes, valid, st, len(R._PASSES) - 1), device=True)
+        if nvary < len(R._PASSES) else None)
+    h_plain = time_ms(torch, lambda: R.radix_digit_counts_ref(codes, valid),
+                      **PLAIN)
+    # codes and valid read once, the counts, bases and plan written
+    h_bytes = b * 25 + 4 * (2 * 13 * 256 + 14)
+    sort_ms = time_ms(torch, lambda: R.radix_sort_codes(codes, valid))
+    sort_plain = time_ms(torch, lambda: R.radix_sort_codes_ref(
         codes, valid), **PLAIN)
-    sort_lib = time_ms(torch, lambda: aggregate.sort_codes(codes, valid))
-    vary = torch.zeros(4, dtype=torch.int32, device=codes.device)
-    radix_bin.radix_hist_cuda(codes, valid, torch.arange(
-        b, dtype=torch.int32, device=codes.device), 2, 0, vary, True)
-    vary_ref = radix_bin.digit_vary_ref(codes, valid)
-    need(torch.equal(vary, vary_ref), "radix vary mask differs from its "
-         "plain version")
-    varying = [(w, sh) for w, sh in radix_bin._PASSES
-               if (int(vary_ref[w]) >> sh) & 0xFF]
-    need((1, 0) in varying, f"pass (w1, byte 0) does not vary: {varying}")
-    order = torch.arange(b, dtype=torch.int32, device=codes.device)
-    hist, totals = radix_bin.radix_hist_cuda(codes, valid, order, 1, 0, vary,
-                                             False)
-    ref = radix_bin.radix_hist_ref(codes, valid, order, 1, 0,
-                                   radix_bin.RADIX_TILE)
-    torch.cuda.synchronize()
-    herr = max_abs_err(torch, (hist, totals), ref)
-    need(herr == 0, f"radix_hist differs from its plain version ({herr})")
-    out = radix_bin.radix_scatter_cuda(codes, valid, order, 1, 0, vary, hist,
-                                       totals)
-    sref = radix_bin.radix_scatter_ref(codes, valid, order, 1, 0)
-    torch.cuda.synchronize()
-    serr = max_abs_err(torch, (out,), (sref,))
-    need(serr == 0, f"radix_scatter differs from its plain version ({serr})")
-    del out, sref, ref
-    h_timed = time_call(torch, lambda: radix_bin.radix_hist_cuda(
-        codes, valid, order, 1, 0, vary, False, hist, totals), device=True)
-    h_plain = time_ms(torch, lambda: radix_bin.radix_hist_ref(
-        codes, valid, order, 1, 0, radix_bin.RADIX_TILE))
-    spare = torch.empty_like(order)
-    s_timed = time_call(torch, lambda: radix_bin.radix_scatter_cuda(
-        codes, valid, order, 1, 0, vary, hist, totals, spare), device=True)
-    s_plain = time_ms(torch, lambda: radix_bin.radix_scatter_ref(
-        codes, valid, order, 1, 0))
-    digits = radix_bin._pass_digits(codes, valid, order, 1, 0)
-    s_lib = time_ms(torch, lambda: torch.sort(digits, stable=True))
-    nb = -(-b // radix_bin.RADIX_TILE)
-    side = 256 * nb * 4 + 256 * 4
+    key = R._fused_keys(codes, valid)[0]
+    fused_ms = time_ms(torch, lambda: torch.sort(key, stable=True))
+    sort_codes_ms = time_ms(torch, lambda: aggregate.sort_codes(codes,
+                                                                valid))
+    # the histogram, the three int32 code words it writes, and the passes
+    sort_bytes = h_bytes + 12 * b + sum(x["bytes"] for x in launches)
+    info = {
+        "label": label, "rows": b, "valid": int(valid.sum()),
+        "varying_passes": passes, "sort_ms": sort_ms,
+        "sort_plain_ms": sort_plain,
+        "sort_bound_ms": sort_bytes / HBM_BYTES_PER_S * 1e3,
+        "fused_key_torch_sort_ms": fused_ms,
+        "sort_codes_library_ms": sort_codes_ms,
+        "hist": {"timed": h_timed, "plain_ms": h_plain, "bytes": h_bytes,
+                 "bound_ms": h_bytes / HBM_BYTES_PER_S * 1e3, "err": herr},
+        "launches": launches, "idle_launch": idle, "scatter_err": serr,
+    }
+    log(f"  radix {label}: B={b}, valid {info['valid']}, {nvary} of 13 "
+        f"passes vary {passes}; whole sort {sort_ms:.4f} ms (bound "
+        f"{info['sort_bound_ms']:.4f} ms), plain {sort_plain:.4f} ms, "
+        f"torch.sort of the fused key {fused_ms:.4f} ms, sort_codes "
+        f"{sort_codes_ms:.4f} ms; histogram {h_timed['ms']:.4f} ms (bound "
+        f"{info['hist']['bound_ms']:.4f}); a launch past the plan "
+        f"{idle and idle['ms']} ms")
+    return info
+
+
+def radix_checks(torch, codes, valid, rows):
+    """Phase 3's radix rows, on the first size-2 chunk's child codes: the
+    histogram, and the scatter kernel at the first pass of a later word
+    (w0, byte 0), whose key is gathered through the order the passes
+    before it left."""
+    info = radix_case(torch, codes, valid, "chunk")
+    gathered = [x for x in info["launches"] if x["launch"] and x["gather"]
+                and x["pass"][0] != 3]
+    need(gathered, f"no pass gathers a word through a non-identity order: "
+         f"{info['varying_passes']}")
+    row = gathered[0]
+    h = info["hist"]
     rows.append(kernel_row(
         "radix_hist", "src/repro_torch/kernels/csrc/radix_sort.cu",
-        "src/repro/kernels/radix_bin.py:83", herr, h_timed, h_plain,
-        b * (4 + 8) + side, None))
+        "src/repro/kernels/radix_bin.py:83", h["err"], h["timed"],
+        h["plain_ms"], h["bytes"], None))
     rows.append(kernel_row(
         "radix_scatter", "src/repro_torch/kernels/csrc/radix_sort.cu",
-        "src/repro/kernels/radix_bin.py:92", serr, s_timed, s_plain,
-        b * (4 + 8 + 4) + side, s_lib))
-    info = {"rows": b, "valid": int(valid.sum()), "varying_passes": varying,
-            "sort_ms": sort_ms, "sort_plain_ms": sort_plain,
-            "sort_codes_library_ms": sort_lib}
-    log(f"  radix: B={b}, {len(varying)} of 13 passes vary {varying}; whole "
-        f"sort {sort_ms:.4f} ms, plain {sort_plain:.4f} ms, two stable "
-        f"torch.sort (sort_codes) {sort_lib:.4f} ms")
+        "src/repro/kernels/radix_bin.py:92", info["scatter_err"],
+        row["timed"], row["plain_ms"], row["bytes"], row["library_ms"]))
+    log(f"  radix rows: radix_scatter timed at launch {row['launch']}, pass "
+        f"{tuple(row['pass'])}")
     return info
+
+
+def level2_rebin_input(torch, table):
+    """The canonical codes and valid mask that the device level 2 of the
+    recorded table hands to ``bin_rows`` (``aggregation._level2_program``)."""
+    from repro_torch.kernels import canonical_refine
+
+    u, c, uv, cap, nvs = table
+    canon = canonical_refine.refine_codes(u, uv, nvs, use_kernel=True)[0]
+    return canon.masked_fill(~uv[:, None], 0).contiguous(), uv
 
 
 def library_gather(torch, table, rows, fill):
@@ -1522,18 +1657,86 @@ def model_profile(torch, model, tokens, prompt, walls, top=8):
     return out
 
 
+def radix_sort_times(torch, np) -> dict:
+    """The radix sort of the ``repro_torch`` on ``sys.path`` at the main
+    path's two shapes on ``mico_like(0.1)``: the first size-2 chunk's child
+    codes, and the canonical codes that the device level 2 of a motifs run
+    under ``cost_model="force_device"`` re-bins (its last, step 3's). At
+    each, exact against the plain version, then timed."""
+    from repro_torch.core import RunConfig, aggregation, graph as G, run
+    from repro_torch.core.apps import MotifsApp
+    from repro_torch.kernels import build, radix_bin as R
+
+    build.library()
+    g = G.mico_like(0.1)
+    dg = G.to_device(g)
+    ch = first_chunk(torch, np, dg, g)
+    shapes = {"chunk": (ch["qp"].codes.contiguous(), ch["child_nv"] > 0)}
+    del ch
+    with Level2Tables(aggregation) as tables:
+        run(g, MotifsApp(max_size=3), RunConfig(cost_model="force_device"))
+    shapes["level2"] = level2_rebin_input(torch, tables.last)
+    out = {"card": torch.cuda.get_device_name(0),
+           "nvidia_smi": nvidia_smi_line()}
+    for name, (codes, valid) in shapes.items():
+        err = max_abs_err(torch, R.radix_sort_codes(codes, valid),
+                          R.radix_sort_codes_ref(codes, valid))
+        need(err == 0, f"radix_sort_codes differs at {name} ({err})")
+        timed = time_call(torch, lambda: R.radix_sort_codes(codes, valid))
+        out[name] = {"rows": codes.shape[0], "valid": int(valid.sum()),
+                     "sort_ms": timed["ms"], "host_ms": timed["host_ms"]}
+    return out
+
+
+def radix_ab(parent_src: Path) -> list:
+    """:func:`radix_sort_times` of ``parent_src``'s package and of this
+    checkout's in turns (parent, change, change, parent), each in a process
+    of its own that builds and loads its own kernels."""
+    results = []
+    for label, src in (("parent", parent_src), ("change", SRC),
+                       ("change", SRC), ("parent", parent_src)):
+        proc = subprocess.run(
+            [sys.executable, str(Path(__file__).resolve()), "--radix-sort",
+             str(src.resolve())], stdout=subprocess.PIPE, text=True)
+        need(proc.returncode == 0, f"the radix sort of {src} failed")
+        res = json.loads(proc.stdout.strip().splitlines()[-1])
+        res.update(label=label, src=str(src))
+        results.append(res)
+        log(f"{label}: chunk {res['chunk']['sort_ms']:.4f} ms, level2 "
+            f"{res['level2']['sort_ms']:.4f} ms ({res['nvidia_smi']})")
+    return results
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--json", type=Path, default=None,
                         help="also write the run's details to this file")
+    parser.add_argument("--radix-ab", type=Path, default=None,
+                        metavar="PARENT_SRC",
+                        help="only time the radix sort of PARENT_SRC's "
+                        "repro_torch and of this checkout's at the chunk and "
+                        "level-2 shapes, in turns (parent, change, change, "
+                        "parent), and print the four results")
+    parser.add_argument("--radix-sort", type=Path, default=None,
+                        help=argparse.SUPPRESS)   # one turn of --radix-ab
     args = parser.parse_args(argv)
     if not (SRC / "repro_torch").is_dir():
         raise SmokeFailure(f"no src/repro_torch beside {Path(__file__).name}")
-    sys.path.insert(0, str(SRC))
+    sys.path.insert(0, str(args.radix_sort or SRC))
     import numpy as np
     import torch
 
     need(torch.cuda.is_available(), "torch.cuda.is_available() is false")
+    if args.radix_sort is not None:
+        print(json.dumps(radix_sort_times(torch, np)))
+        return 0
+    if args.radix_ab is not None:
+        results = radix_ab(args.radix_ab)
+        if args.json is not None:
+            args.json.parent.mkdir(parents=True, exist_ok=True)
+            args.json.write_text(json.dumps(results, indent=1))
+        print(json.dumps(results))
+        return 0
     t_all = time.perf_counter()
 
     # ---- 1. the card ----------------------------------------------------------
@@ -1605,6 +1808,8 @@ def main(argv=None) -> int:
          RunConfig(graph_partition=PARTS)),
     ])
     row, extra["level2_step3"] = refine_main_table(torch, level2_table)
+    extra["radix_level2"] = radix_case(
+        torch, *level2_rebin_input(torch, level2_table), "level2")
     kernels.append(row)
     del level2_table
     build.reset_launches()

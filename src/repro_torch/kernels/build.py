@@ -58,8 +58,10 @@ _SIGNATURES = {
     "repro_stream_compact": [_P, _L, _I, _P, _P, _P, _P],
     "repro_seg_unique": [_P, _P, _L, _I, _P, _P, _P, _P, _P, _P],
     "repro_scan_tile": [],
-    "repro_radix_hist": [_P, _P, _P, _L, _I, _I, _I, _P, _P, _P, _P],
-    "repro_radix_scatter": [_P, _P, _P, _L, _I, _I, _P, _P, _P, _P, _P],
+    "repro_radix_tile": [],
+    "repro_radix_hist": [_P, _P, _L, _P, _P, _P, _P, _P],
+    "repro_radix_scatter": [_I, _P, _P, _L, _P, _P, _P, _P, _P, _P, _P, _P,
+                            _P, _P, _P, _P],
     "repro_canonical_refine": [_P, _P, _L, _P, _P, _I, _I, _P, _P, _P, _P],
     "repro_gather_rows": [_P, _L, _L, _P, _L, _I, _P, _P],
     "repro_canonical_check_tiles": [_P, _P, _P, _P, _P, _L, _I, _L, _L, _P,

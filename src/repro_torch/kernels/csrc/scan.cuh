@@ -1,5 +1,5 @@
-// Shared scan machinery of the kernels that turn flags into positions
-// (stream_compact.cu, seg_unique.cu, radix_sort.cu).
+// Shared scan machinery of the kernels that turn flags or digits into
+// positions (stream_compact.cu, seg_unique.cu, radix_sort.cu).
 //
 // The Pallas kernels these replace carry a running total across a grid that
 // runs in order (the revisited-window idiom of kernels/compact.py and
@@ -153,6 +153,53 @@ __device__ __forceinline__ int tile_lookback(
     excl += (int)__reduce_add_sync(0xffffffffu,
                                    lane <= stop ? (uint32_t)w : 0u);
     if (prefix) return excl;
+  }
+}
+
+// -- decoupled look-back over many digits a tile (radix_sort.cu) -----------
+// A tile publishes one status word per digit, at status[tile * 256 + digit].
+// The flag half also carries a tag (the launch that wrote the word), so
+// that one memset serves several launches over the same words: a word with
+// another tag reads as not yet published.
+constexpr int kLookbackDigits = 256;
+constexpr unsigned kDigitAggregate = 1u;
+constexpr unsigned kDigitPrefix = 2u;
+
+__device__ __forceinline__ void digit_publish(unsigned long long* tile_words,
+                                              int digit, unsigned tag,
+                                              unsigned kind, int value) {
+  tile_publish(tile_words, digit,
+               (unsigned long long)((tag << 2) | kind) << 32, value);
+}
+
+// The sum of `digit` over every tile before `tile`, in the one thread that
+// owns the digit, after `tile` has published its aggregate: it reads the
+// words of the Window tiles before the last one it read at once, nearest
+// first, waits on a word not yet published under `tag`, and adds the
+// aggregates down to the nearest inclusive prefix (tile 0 always publishes
+// one; tiles before it read as a prefix of 0).
+template <int Window>
+__device__ __forceinline__ int digit_lookback(
+    const unsigned long long* status, int64_t tile, int digit, unsigned tag) {
+  const unsigned long long none = (unsigned long long)((tag << 2) |
+                                                       kDigitPrefix) << 32;
+  int excl = 0;
+  for (int64_t end = tile - 1;; end -= Window) {
+    unsigned long long w[Window];
+#pragma unroll
+    for (int k = 0; k < Window; ++k) {
+      w[k] = end - k >= 0
+                 ? tile_status(status, (end - k) * kLookbackDigits + digit)
+                 : none;
+    }
+#pragma unroll
+    for (int k = 0; k < Window; ++k) {
+      while ((unsigned)(w[k] >> 34) != tag) {
+        w[k] = tile_status(status, (end - k) * kLookbackDigits + digit);
+      }
+      excl += (int)(uint32_t)w[k];
+      if ((unsigned)(w[k] >> 32 & 3u) == kDigitPrefix) return excl;
+    }
   }
 }
 

@@ -5,13 +5,17 @@ Two routes with ``aggregate.bin_rows``'s exact contract:
 
 * :func:`radix_sort_codes` — a stable LSB radix sort of the (B, 3) code
   rows, one 8-bit digit per pass (w2, w1, w0, then the invalid flag, least
-  significant first, :data:`_PASSES`). On a CUDA tensor each pass is the
-  two hand-written kernels of ``csrc/radix_sort.cu``
-  (:func:`radix_hist_cuda`, :func:`radix_scatter_cuda`); passes whose digit
-  is constant over the batch are skipped on the device, without a host
-  read. On a CPU tensor it is the plain version
-  (:func:`radix_sort_codes_ref`, one stable sort per pass).
-  :func:`bin_rows_radix` then finds segments as the sort bin does.
+  significant first, :data:`_PASSES`). It is 1 + 13 launches of the two
+  hand-written kernels of ``csrc/radix_sort.cu``: :func:`radix_hist_cuda`
+  counts the digits of all 13 passes in one read of the rows and writes
+  the plan (the passes whose digit varies) and each pass's digit bases;
+  :func:`radix_scatter_cuda` launch ``i`` then runs the plan's ``i``-th
+  pass over carried keys, and returns at once past the plan's count, so
+  the host never reads the device. On a CPU tensor each launch is its
+  plain version (:func:`radix_digit_counts_ref`, :func:`radix_pass_ref`)
+  over the same buffers. :func:`radix_sort_codes_ref` is the whole-sort
+  oracle (one stable sort per pass). :func:`bin_rows_radix` then finds
+  segments as the sort bin does.
 
 * the fused-key route (``use_kernel=False``): the three code words are
   fused into ONE int64 key at their measured bit widths, sorted
@@ -44,137 +48,214 @@ _PASSES = (
     (0, 0), (0, 8), (0, 16), (0, 24),
     (3, 0),
 )
+NPASSES = len(_PASSES)
 
 #: the fused key of an invalid row: above every key of <= FUSED_BITS bits.
 _SENTINEL = 2**63 - 1
 FUSED_BITS = 62
 
 INT32_MAX = 2**31 - 1
-#: rows per block of the radix kernels (``kTileRows`` in
-#: ``csrc/radix_sort.cu``): the block partition of the histogram.
+#: rows per tile of the pass kernel (``kTileRows`` in
+#: ``csrc/radix_sort.cu``): one look-back status word per digit a tile.
 RADIX_TILE = 4096
+#: 8-byte words of the scratch header (``kHeaderWords``): the digit counts,
+#: the histogram's finish counter and one tile counter per launch.
+_HEADER_WORDS = 2048
+
+
+def _word(codes, valid, word: int):
+    """Word ``word`` of every row as int64 in [0, 2^32): the low 32 bits of
+    code word 0-2, or 3, the invalid flag."""
+    if word == 3:
+        return (~valid).to(torch.int64)
+    return codes[:, word] & 0xFFFFFFFF
 
 
 def _pass_digits(codes, valid, order, word: int, shift: int):
     """The pass's 8-bit digit of each row of ``order`` (int64)."""
-    src = (~valid).to(torch.int64) if word == 3 else codes[:, word]
-    return (src[order.to(torch.int64)] >> shift) & 0xFF
+    return (_word(codes, valid, word)[order.to(torch.int64)] >> shift) & 0xFF
 
 
-def digit_vary_ref(codes, valid):
-    """(4,) int32 mask of the bits that vary over the batch: the OR over
-    rows of ``word[r] ^ word[0]`` for the three words' low 32 bits and the
-    invalid flag. A pass whose byte of it is 0 permutes nothing."""
-    words = torch.stack([
-        codes[:, 0] & 0xFFFFFFFF, codes[:, 1] & 0xFFFFFFFF,
-        codes[:, 2] & 0xFFFFFFFF, (~valid).to(torch.int64),
-    ], dim=1)
-    diff = words ^ words[:1]
-    out = torch.zeros((4,), dtype=torch.int64, device=codes.device)
-    for bit in range(32):
-        out |= (((diff >> bit) & 1).amax(dim=0)) << bit
-    return out.to(torch.int32)
+def radix_digit_counts_ref(codes, valid):
+    """Plain version of the histogram kernel: ``(plan, counts, bases)``.
+
+    ``counts`` (13, 256) int32: the rows of each digit of each pass of
+    :data:`_PASSES`; ``bases`` (13, 256) int32: their exclusive prefix
+    over the digits; ``plan`` (14,) int32: the number of passes whose
+    digit is not the same for every row, then their pass indices in
+    :data:`_PASSES` order, then -1. Computed without a host read."""
+    b = codes.shape[0]
+    dev = codes.device
+    counts = torch.zeros((NPASSES, NDIGITS), dtype=torch.int32, device=dev)
+    ones = torch.ones((b,), dtype=torch.int32, device=dev)
+    for p, (word, shift) in enumerate(_PASSES):
+        counts[p].index_add_(0, (_word(codes, valid, word) >> shift) & 0xFF,
+                             ones)
+    bases = torch.cumsum(counts, 1, dtype=torch.int32) - counts
+    vary = (counts != b).all(1)
+    nvary = vary.sum(dtype=torch.int32)
+    ids = torch.argsort((~vary).to(torch.int8), stable=True).to(torch.int32)
+    pos = torch.arange(NPASSES, device=dev)
+    plan = torch.cat([nvary.reshape(1), torch.where(pos < nvary, ids, -1)])
+    return plan.to(torch.int32), counts, bases
 
 
-def radix_hist_ref(codes, valid, order, word: int, shift: int, tile: int):
-    """Plain version of one pass's digit statistics: ``hist`` (256 * nb,)
-    int32, digit-major, holding for each (digit, block of ``tile`` rows)
-    the rows of that digit in earlier blocks, and ``totals`` (256,) int32,
-    the rows of each digit."""
-    b = order.shape[0]
-    nb = -(-b // tile)
-    d = _pass_digits(codes, valid, order, word, shift)
-    blk = torch.arange(b, device=order.device) // tile
-    counts = torch.zeros((NDIGITS * nb,), dtype=torch.int32,
-                         device=order.device)
-    counts.index_add_(0, d * nb + blk, torch.ones_like(d, dtype=torch.int32))
-    counts = counts.reshape(NDIGITS, nb)
-    hist = torch.cumsum(counts, 1, dtype=torch.int32) - counts
-    return hist.reshape(-1), counts.sum(1, dtype=torch.int32)
+def radix_pass_ref(keys, order, shift: int):
+    """Plain version of one pass of the scatter kernel over carried keys:
+    ``(keys, order)`` stably re-sorted by the digit
+    ``(keys >> shift) & 0xFF`` (``keys`` int64 in [0, 2^32))."""
+    perm = torch.sort((keys >> shift) & 0xFF, stable=True).indices
+    return keys[perm], order[perm]
 
 
-def radix_scatter_ref(codes, valid, order, word: int, shift: int):
-    """Plain version of one stable pass: ``order`` stably re-sorted by the
-    pass's digit."""
-    d = _pass_digits(codes, valid, order, word, shift)
-    return order[torch.sort(d, stable=True).indices]
+class RadixScratch:
+    """The buffers of one sort of ``b`` rows on ``device``: the plan and
+    the digit bases, the order and the carried keys in two ping-pong
+    buffers each, the outputs (the order, and codes and valid in it) and,
+    on the card, the three code words as int32 arrays (the histogram
+    writes them, so that a pass that starts a word gathers 4 bytes a row,
+    not a sector of the (B, 3) int64 table) and the kernels' scratch (the
+    digit counts, the counters, the tiles' look-back status words). A sort
+    clears what it needs, so the same buffers serve sort after sort of the
+    same batch."""
+
+    def __init__(self, b: int, device):
+        dev = torch.device(device)
+        i32 = dict(dtype=torch.int32, device=dev)
+        self.b = b
+        self.plan = torch.empty((1 + NPASSES,), **i32)
+        self.bases = torch.empty((NPASSES, NDIGITS), **i32)
+        self.orders = [torch.empty((b,), **i32) for _ in range(2)]
+        self.keys = [torch.empty((b,), **i32) for _ in range(2)]
+        self.out = torch.empty((b,), **i32)
+        self.codes_out = torch.empty((b, 3), dtype=torch.int64, device=dev)
+        self.valid_out = torch.empty((b,), dtype=torch.bool, device=dev)
+        if dev.type == "cuda":
+            self.words = torch.empty((3, b), **i32)
+            tiles = -(-b // RADIX_TILE)
+            self.scratch = torch.empty((_HEADER_WORDS + tiles * NDIGITS,),
+                                       dtype=torch.int64, device=dev)
+            self.counts = self.scratch.view(torch.int32)[
+                :NPASSES * NDIGITS].view(NPASSES, NDIGITS)
+        else:
+            self.words = self.scratch = None
+            self.counts = torch.empty((NPASSES, NDIGITS), **i32)
+
+    def ptrs(self):
+        """The device pointers of the buffers, in the C entries' order."""
+        return (self.words.data_ptr(), self.scratch.data_ptr(),
+                self.plan.data_ptr(), self.bases.data_ptr())
 
 
-def _check_rows(codes, valid, order):
+def _check_rows(codes, valid, st):
     dev = codes.device
     if codes.dtype != torch.int64 or codes.dim() != 2 or codes.shape[1] != 3:
         raise TypeError(f"codes: expected (B, 3) int64, got "
                         f"{tuple(codes.shape)} {codes.dtype}")
     b = codes.shape[0]
-    for name, t, dt in (("valid", valid, torch.bool),
-                        ("order", order, torch.int32)):
-        if t.dtype != dt or t.shape != (b,) or t.device != dev:
-            raise TypeError(f"{name}: expected ({b},) {dt} on {dev}")
+    if (valid.dtype != torch.bool or valid.shape != (b,)
+            or valid.device != dev):
+        raise TypeError(f"valid: expected ({b},) bool on {dev}")
+    if not (codes.is_contiguous() and valid.is_contiguous()):
+        raise ValueError("codes and valid must be contiguous")
+    if st.b != b or st.plan.device != dev:
+        raise ValueError(f"scratch for {st.b} rows on {st.plan.device}, "
+                         f"batch of {b} on {dev}")
     if b > INT32_MAX:
         raise ValueError(f"batch {b} exceeds int32 row indices")
 
 
-def radix_hist_cuda(codes, valid, order, word: int, shift: int, vary,
-                    first: bool, hist=None, totals=None):
-    """One pass's digit statistics by ``csrc/radix_sort.cu`` (same
-    contract as :func:`radix_hist_ref` for a pass whose digit varies; for
-    a constant digit ``hist``/``totals`` are left unwritten). ``first``
-    also ORs the batch's :func:`digit_vary_ref` mask into ``vary`` ((4,)
-    int32, zeroed by the caller); every other pass reads it."""
+def radix_hist_cuda(codes, valid, st: RadixScratch):
+    """The histogram kernel of ``csrc/radix_sort.cu``: one read of
+    ``codes`` and ``valid`` writes ``st.plan``, ``st.counts`` and
+    ``st.bases`` (:func:`radix_digit_counts_ref`'s contract) and the
+    structure-of-arrays words, and clears the passes' scratch."""
     if not on_cuda(codes):
-        if first:
-            vary |= digit_vary_ref(codes, valid)
-        return radix_hist_ref(codes, valid, order, word, shift, RADIX_TILE)
-    _check_rows(codes, valid, order)
-    b = codes.shape[0]
-    dev = codes.device
-    nb = -(-b // RADIX_TILE)
-    if hist is None:
-        hist = torch.empty((NDIGITS * nb,), dtype=torch.int32, device=dev)
-    if totals is None:
-        totals = torch.empty((NDIGITS,), dtype=torch.int32, device=dev)
-    lib = build.library()
-    with torch.cuda.device(dev):
-        build.count_launch("radix_hist")
-        build.check(lib.repro_radix_hist(
-            codes.data_ptr(), valid.data_ptr(), order.data_ptr(), b, word,
-            shift, int(first), vary.data_ptr(), hist.data_ptr(),
-            totals.data_ptr(), build.stream_of(codes),
-        ), "radix_hist")
-    return hist, totals
+        plan, counts, bases = radix_digit_counts_ref(codes, valid)
+        st.plan.copy_(plan)
+        st.counts.copy_(counts)
+        st.bases.copy_(bases)
+        return
+    _check_rows(codes, valid, st)
+    build.launch("radix_hist", build.library().repro_radix_hist,
+                 codes.get_device(), codes.data_ptr(), valid.data_ptr(),
+                 st.b, *st.ptrs())
 
 
-def radix_scatter_cuda(codes, valid, order, word: int, shift: int, vary,
-                       hist, totals, out=None):
-    """One stable pass by ``csrc/radix_sort.cu``, after
-    :func:`radix_hist_cuda` of the same pass: ``order`` stably re-sorted
-    by the pass's digit, written to ``out`` (a buffer distinct from
-    ``order``)."""
+def _pass_plain(codes, valid, st: RadixScratch, i: int):
+    """Plain version of launch ``i`` of the scatter kernel, over the same
+    buffers (the plan is read on the host: CPU tensors only)."""
+    plan = st.plan.tolist()
+    nvary = plan[0]
+    if i >= nvary:
+        if i == 0:
+            st.out.copy_(torch.arange(st.b, dtype=torch.int32))
+            st.codes_out.copy_(codes)
+            st.valid_out.copy_(valid)
+        return
+    word, shift = _PASSES[plan[1 + i]]
+    order = (torch.arange(st.b, dtype=torch.int32) if i == 0
+             else st.orders[i & 1])
+    if i == 0 or _PASSES[plan[i]][0] != word:
+        keys = _word(codes, valid, word)[order.to(torch.int64)]
+    else:
+        keys = st.keys[i & 1].to(torch.int64) & 0xFFFFFFFF
+    keys, order = radix_pass_ref(keys, order, shift)
+    if i == nvary - 1:
+        st.out.copy_(order)
+        st.codes_out.copy_(codes[order])
+        st.valid_out.copy_(valid[order])
+        return
+    st.orders[(i + 1) & 1].copy_(order)
+    if _PASSES[plan[2 + i]][0] == word:
+        st.keys[(i + 1) & 1].copy_(keys.to(torch.int32))
+
+
+def radix_scatter_cuda(codes, valid, st: RadixScratch, i: int):
+    """Launch ``i`` (0-12) of the scatter kernel of ``csrc/radix_sort.cu``,
+    after :func:`radix_hist_cuda` on ``st``: the plan's ``i``-th pass reads
+    the order and the carried keys of ``st.orders[i & 1]`` and
+    ``st.keys[i & 1]`` (the rows in place for ``i == 0``), and writes them
+    stably re-sorted by its digit (:func:`radix_pass_ref`) to
+    ``st.orders[(i + 1) & 1]`` and ``st.keys[(i + 1) & 1]``, the keys only
+    when the next pass sorts by the same word. The last
+    varying pass writes the sort's outputs instead: ``st.out``, and
+    ``st.codes_out`` and ``st.valid_out``, the rows gathered in that
+    order. Past the plan's count it writes nothing (launch 0 writes the
+    identity outputs when no pass varies)."""
     if not on_cuda(codes):
-        return radix_scatter_ref(codes, valid, order, word, shift)
-    _check_rows(codes, valid, order)
-    b = codes.shape[0]
-    if out is None:
-        out = torch.empty_like(order)
-    lib = build.library()
-    with torch.cuda.device(codes.device):
-        build.count_launch("radix_scatter")
-        build.check(lib.repro_radix_scatter(
-            codes.data_ptr(), valid.data_ptr(), order.data_ptr(), b, word,
-            shift, vary.data_ptr(), hist.data_ptr(), totals.data_ptr(),
-            out.data_ptr(), build.stream_of(codes),
-        ), "radix_scatter")
-    return out
+        _pass_plain(codes, valid, st, i)
+        return
+    _check_rows(codes, valid, st)
+    words, scratch, plan, bases = st.ptrs()
+    build.launch("radix_scatter", build.library().repro_radix_scatter,
+                 codes.get_device(), i, codes.data_ptr(),
+                 valid.data_ptr(), st.b, words, scratch, plan, bases,
+                 st.orders[0].data_ptr(), st.orders[1].data_ptr(),
+                 st.keys[0].data_ptr(), st.keys[1].data_ptr(),
+                 st.out.data_ptr(), st.codes_out.data_ptr(),
+                 st.valid_out.data_ptr())
+
+
+def radix_sort_into(codes, valid, st: RadixScratch):
+    """The sort into ``st``'s outputs: the histogram, then all 13 launches
+    of the scatter kernel (passes that do not vary return at once).
+    Returns (sorted codes, sorted valid, order)."""
+    radix_hist_cuda(codes, valid, st)
+    for i in range(NPASSES):
+        radix_scatter_cuda(codes, valid, st, i)
+    return st.codes_out, st.valid_out, st.out
 
 
 def radix_sort_codes_ref(codes, valid):
-    """Plain version of :func:`radix_sort_codes`: the same passes, each a
-    stable sort of the pass's digits. A pass over a constant digit is the
-    identity, so none is skipped."""
+    """The whole-sort oracle of :func:`radix_sort_codes`: the same passes,
+    each a stable sort of the pass's digits of every row. A pass over a
+    constant digit is the identity, so none is skipped."""
     order = torch.arange(codes.shape[0], dtype=torch.int32,
                          device=codes.device)
     for word, shift in _PASSES:
-        order = radix_scatter_ref(codes, valid, order, word, shift)
+        d = _pass_digits(codes, valid, order, word, shift)
+        order = order[torch.sort(d, stable=True).indices]
     return codes[order], valid[order], order
 
 
@@ -183,28 +264,15 @@ def radix_sort_codes(codes, valid):
 
     Same contract as ``aggregate.sort_codes``, and the order is exactly the
     stable sort by (invalid, w0, w1, w2): returns (sorted codes, sorted
-    valid, order int32). A CUDA tensor runs the kernels and never reads the
-    device from the host; a CPU tensor runs :func:`radix_sort_codes_ref`."""
-    if not on_cuda(codes):
-        return radix_sort_codes_ref(codes, valid)
+    valid, order int32). A CUDA tensor runs the kernels (1 + 13 launches)
+    and never reads the device from the host; a CPU tensor runs their
+    plain versions over the same buffers."""
     b = codes.shape[0]
-    dev = codes.device
-    codes, valid = codes.contiguous(), valid.contiguous()
-    order = torch.arange(b, dtype=torch.int32, device=dev)
     if b == 0:
-        return codes, valid, order
-    nb = -(-b // RADIX_TILE)
-    vary = torch.zeros((4,), dtype=torch.int32, device=dev)
-    hist = torch.empty((NDIGITS * nb,), dtype=torch.int32, device=dev)
-    totals = torch.empty((NDIGITS,), dtype=torch.int32, device=dev)
-    spare = torch.empty_like(order)
-    for i, (word, shift) in enumerate(_PASSES):
-        radix_hist_cuda(codes, valid, order, word, shift, vary, i == 0,
-                        hist, totals)
-        radix_scatter_cuda(codes, valid, order, word, shift, vary, hist,
-                           totals, spare)
-        order, spare = spare, order
-    return codes[order], valid[order], order
+        return codes, valid, torch.zeros((0,), dtype=torch.int32,
+                                         device=codes.device)
+    codes, valid = codes.contiguous(), valid.contiguous()
+    return radix_sort_into(codes, valid, RadixScratch(b, codes.device))
 
 
 # ---------------------------------------------------------------------------

@@ -146,6 +146,103 @@ def _refine_codes(rng, nv, n, n_labels=4):
     return np.array(out, dtype=np.int64)
 
 
+def _check_radix_kernels(codes, valid):
+    """The radix kernels on one batch against their plain versions, twice
+    on the same scratch: the histogram's plan, counts and bases, each
+    launch of the scatter kernel against one stable pass over the keys and
+    order it read (the last one also against the codes and valid flags
+    gathered in its order), and the outputs against the whole-sort
+    oracle."""
+    b, dev = codes.shape[0], codes.device
+    st = radix_bin.RadixScratch(b, dev)
+    want = radix_bin.radix_sort_codes_ref(codes, valid)[2]
+    ref = radix_bin.radix_digit_counts_ref(codes, valid)
+    for _ in range(2):
+        radix_bin.radix_hist_cuda(codes, valid, st)
+        for a, w in zip((st.plan, st.counts, st.bases), ref):
+            assert torch.equal(a, w)
+        plan = st.plan.tolist()
+        nvary = plan[0]
+        words = [radix_bin._PASSES[p][0] for p in plan[1:1 + nvary]]
+        for i in range(radix_bin.NPASSES):
+            if i < nvary:
+                word, shift = radix_bin._PASSES[plan[1 + i]]
+                order = (torch.arange(b, dtype=torch.int32, device=dev)
+                         if i == 0 else st.orders[i & 1].clone())
+                keys = (radix_bin._word(codes, valid, word)[order.long()]
+                        if i == 0 or words[i - 1] != word
+                        else st.keys[i & 1].long() & 0xFFFFFFFF)
+            radix_bin.radix_scatter_cuda(codes, valid, st, i)
+            if i == nvary - 1:
+                o_ref = radix_bin.radix_pass_ref(keys, order, shift)[1]
+                assert torch.equal(st.out, o_ref)
+                assert torch.equal(st.codes_out, codes[o_ref])
+                assert torch.equal(st.valid_out, valid[o_ref])
+            elif i < nvary:
+                k_ref, o_ref = radix_bin.radix_pass_ref(keys, order, shift)
+                assert torch.equal(st.orders[(i + 1) & 1], o_ref), i
+                if words[i + 1] == word:
+                    got = st.keys[(i + 1) & 1].long() & 0xFFFFFFFF
+                    assert torch.equal(got, k_ref), i
+        assert torch.equal(st.out, want)
+        assert torch.equal(st.codes_out, codes[want])
+        assert torch.equal(st.valid_out, valid[want])
+
+
+@pytest.mark.parametrize("case,size", [
+    ("random", "0"), ("random", "1"), ("random", "tile-1"),
+    ("random", "tile"), ("random", "tile+1"), ("random", "tiles"),
+    ("random", "2^20+3"), ("one_digit", "2^20+3"), ("skewed", "2^20+3"),
+    ("all_invalid", "tiles"), ("flag_only", "tiles"),
+    ("word_after_skip", "tiles"), ("bit_31", "tiles"),
+])
+def test_radix_kernels_match_plain_versions(cuda_device, case, size):
+    """The radix kernels off the main path's shapes: B of 0, 1, one tile
+    and one row either side, 17 tiles and 2^20 + 3 rows; every pass varies
+    (random words, bit 31 set in half of them); every row the same code
+    (no pass varies: launch 0 writes the identity; the worst skew); 99.9 %
+    of rows zero and invalid (the level-2 re-bin's shape); all rows
+    invalid; only the invalid flag varies; a word whose low byte is
+    constant and whose higher bytes vary (its first pass comes after a
+    skipped one); words with bit 31 set in every row."""
+    tile = build.library().repro_radix_tile()
+    assert tile == radix_bin.RADIX_TILE
+    b = {"0": 0, "1": 1, "tile-1": tile - 1, "tile": tile,
+         "tile+1": tile + 1, "tiles": 17 * tile - 5,
+         "2^20+3": (1 << 20) + 3}[size]
+    rng = np.random.default_rng(b + len(case))
+    codes = rng.integers(0, 2**32, (b, 3)).astype(np.int64)
+    valid = rng.random(b) < 0.8
+    if case in ("one_digit", "flag_only"):
+        codes[:] = [3 | 5 << 4, 0x01020304, 0x0A0B0C0D]
+    if case == "one_digit":
+        valid[:] = True
+    elif case == "skewed":
+        live = rng.random(b) < 0.001
+        codes[~live] = 0
+        valid = live
+    elif case == "all_invalid":
+        valid[:] = False
+    elif case == "word_after_skip":
+        codes[:, 1] = (codes[:, 1] & 0xFFFFFF00) | 0x2A
+        codes[:, 2] = 7
+    elif case == "bit_31":
+        codes |= 1 << 31
+    codes = torch.from_numpy(codes).to(cuda_device)
+    valid = torch.from_numpy(valid).to(cuda_device)
+    before = dict(build.LAUNCHES)
+    _check_radix_kernels(codes, valid)
+    for _ in range(2):
+        got = radix_bin.radix_sort_codes(codes, valid)
+        want = radix_bin.radix_sort_codes_ref(codes, valid)
+        for a, w in zip(got, want):
+            assert torch.equal(a, w)
+    torch.cuda.synchronize()
+    if b:
+        assert build.LAUNCHES["radix_hist"] == before["radix_hist"] + 4
+        assert build.LAUNCHES["radix_scatter"] == before["radix_scatter"] + 52
+
+
 def test_radix_and_refine_kernels_match_plain_versions(cuda_device):
     dev = cuda_device
     rng = np.random.default_rng(1)
@@ -158,20 +255,9 @@ def test_radix_and_refine_kernels_match_plain_versions(cuda_device):
         want = radix_bin.radix_sort_codes_ref(codes[:b], valid[:b])
         for a, w in zip(got, want):
             assert torch.equal(a, w)
-    # one varying pass, piece by piece, on a shuffled order
-    order = torch.randperm(70_000, device=dev).to(torch.int32)
-    vary = torch.zeros(4, dtype=torch.int32, device=dev)
-    radix_bin.radix_hist_cuda(codes, valid, order, 2, 0, vary, True)
-    assert torch.equal(vary, radix_bin.digit_vary_ref(codes, valid))
-    hist, totals = radix_bin.radix_hist_cuda(codes, valid, order, 1, 8, vary,
-                                             False)
-    ref_h, ref_t = radix_bin.radix_hist_ref(codes, valid, order, 1, 8,
-                                            radix_bin.RADIX_TILE)
-    assert torch.equal(hist, ref_h) and torch.equal(totals, ref_t)
-    out = radix_bin.radix_scatter_cuda(codes, valid, order, 1, 8, vary, hist,
-                                       totals)
-    assert torch.equal(out, radix_bin.radix_scatter_ref(codes, valid, order,
-                                                        1, 8))
+    # the two kernels piece by piece: the histogram, then each launch of
+    # the plan from the state the launches before it left
+    _check_radix_kernels(codes, valid)
     for use_kernel in (False, True):
         got = aggregate.bin_rows(codes, valid, 1 << 12, use_kernel=use_kernel,
                                  method="radix")
