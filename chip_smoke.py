@@ -38,9 +38,9 @@ Phases, in order; any failure exits non-zero and prints no result:
      whole-graph runs; the launch counts are zeroed
      just before each run and read just after, and every kernel must have
      launched. The refine row is then timed on the distinct table that
-     level 2 of the last run's step 3 refined, and the radix sort, as in
-     phase 3, on the canonical codes that level 2 re-bins (33,554,432
-     rows);
+     level 2 of the last run's step 3 refined, and the radix sort and
+     ``seg_unique``, as in phase 3, on the canonical codes that level 2
+     re-bins (33,554,432 rows);
   6. the model zoo's dense decoder (``repro_torch.models``):
      a. RMSNorm and flash attention against their plain versions at
         qwen2.5-14b's shapes (the forward's 8,192 x 5,120 rows and a decode
@@ -78,13 +78,15 @@ It prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 repository's ``src`` beside it and a CUDA device; it imports neither JAX
 nor the JAX package.
 
-    python3 chip_smoke.py --radix-ab PARENT_SRC [--json PATH]
+    python3 chip_smoke.py --kernel-ab PARENT_SRC [--json PATH]
 
-runs only the parent-against-change comparison of the radix sort: the
-whole sort of ``PARENT_SRC``'s ``repro_torch`` (for example a ``git
-archive`` of the parent commit unpacked under ``archive_check/``) and of
-this checkout's, at the chunk and level-2 shapes of phases 3 and 5, in
-turns (parent, change, change, parent), each in a process of its own.
+runs only the parent-against-change comparison of the redesigned kernels
+of ``PARENT_SRC``'s ``repro_torch`` (for example a ``git archive`` of the
+parent commit unpacked under ``archive_check/``) and of this checkout's:
+the whole radix sort and ``seg_unique`` at the chunk and level-2 shapes of
+phases 3 and 5, the canonical refine at the level-2 table and on the
+seeded codes of every nv from 2 to 8, in turns (parent, change, change,
+parent), each in a process of its own.
 """
 from __future__ import annotations
 
@@ -343,7 +345,7 @@ def first_chunk(torch, np, dg, g) -> dict:
 def kernel_checks(torch, np, dg, g):
     """Phase 3: every kernel against its plain version at main-path shapes
     (the first size-2 chunk of mico_like(0.1) and what it produces)."""
-    from repro_torch.kernels import aggregate, build, compact
+    from repro_torch.kernels import build, compact
     from repro_torch.kernels.canonical_check.canonical_check import (
         canonical_check_cuda, canonical_check_ref, expand_canonical_cuda,
         expand_canonical_ref,
@@ -421,33 +423,9 @@ def kernel_checks(torch, np, dg, g):
 
     # -- seg_unique: the chunk's children codes, sorted ---------------------
     qp, child_nv = ch["qp"], ch["child_nv"]
-    sc, sv, _ = aggregate.sort_codes(qp.codes, child_nv > 0)
-    new = sv & torch.cat([torch.ones(1, dtype=torch.bool, device=dev),
-                          (sc[1:] != sc[:-1]).any(1)])
     acap = min(out_cap, AGG_QCAP)
-    errs = []
-    for cap in (acap, out_cap):         # main-path capacity, and no overflow
-        got = aggregate.seg_unique_cuda(new, sv, cap)
-        want = aggregate.seg_unique_ref(new, sv, cap)
-        torch.cuda.synchronize()
-        errs.append(max_abs_err(torch, got, want))
-    err = max(errs)
-    need(err == 0, f"seg_unique differs from its plain version ({err})")
-    n_distinct = int(got[3])
-    timed = time_call(torch, lambda: aggregate.seg_unique_cuda(
-        new, sv, acap), device=True)
-    plain = time_ms(torch, lambda: aggregate.seg_unique_ref(new, sv, acap))
-    valid_rows = sc[:kept]
-    lib_ms = time_ms(torch, lambda: torch.unique_consecutive(
-        valid_rows, dim=0, return_inverse=True, return_counts=True))
-    bsz = new.numel()
-    nbytes = 2 * bsz + 4 * bsz + 2 * acap * 4 + 4
-    rows.append(kernel_row(
-        "seg_unique", "src/repro_torch/kernels/csrc/seg_unique.cu",
-        "src/repro/kernels/aggregate.py:110", err, timed, plain, nbytes,
-        lib_ms))
-    log(f"  seg_unique: B={bsz} cap={acap} distinct={n_distinct}")
-    del got, want, sc, sv, new, valid_rows
+    rows.append(seg_unique_case(torch, qp.codes, child_nv > 0, acap,
+                                out_cap, "chunk"))
 
     # -- radix passes: the same chunk's child codes, as the radix bin of the
     # chunk program gets them ----------------------------------------------
@@ -458,6 +436,55 @@ def kernel_checks(torch, np, dg, g):
     extra["refine_synthetic"] = refine_synthetic_checks(torch, np, dev)
     build.reset_launches()
     return rows, extra
+
+
+def seg_inputs(torch, codes, valid):
+    """The flags ``bin_sorted`` gives ``seg_unique`` for a batch of codes:
+    (new, valid) in sort order, and the sorted codes."""
+    from repro_torch.kernels import aggregate
+
+    sc, sv, _ = aggregate.sort_codes(codes, valid)
+    new = sv & torch.cat([torch.ones(1, dtype=torch.bool, device=sc.device),
+                          (sc[1:] != sc[:-1]).any(1)])
+    return new, sv, sc
+
+
+def seg_unique_bytes(b: int, cap: int) -> int:
+    """Bytes ``seg_unique`` must move: both flags read, the slots written
+    (6 B a row), and the src and counts windows and n written."""
+    return 6 * b + 2 * cap * 4 + 4
+
+
+def seg_unique_case(torch, codes, valid, cap, wide_cap, label):
+    """``seg_unique`` on one batch of sorted codes against its plain
+    version (exact) at the main path's ``cap`` and at ``wide_cap``; then
+    its kernel row, timed at ``cap``."""
+    from repro_torch.kernels import aggregate
+
+    new, sv, sc = seg_inputs(torch, codes, valid)
+    errs = []
+    for c in (cap, wide_cap):
+        got = aggregate.seg_unique_cuda(new, sv, c)
+        want = aggregate.seg_unique_ref(new, sv, c)
+        torch.cuda.synchronize()
+        errs.append(max_abs_err(torch, got, want))
+    err = max(errs)
+    need(err == 0, f"seg_unique differs from its plain version at {label} "
+         f"({err})")
+    n_distinct = int(got[3])
+    del got, want
+    timed = time_call(torch, lambda: aggregate.seg_unique_cuda(
+        new, sv, cap), device=True)
+    plain = time_ms(torch, lambda: aggregate.seg_unique_ref(new, sv, cap))
+    valid_rows = sc[:int(sv.sum())]
+    lib_ms = time_ms(torch, lambda: torch.unique_consecutive(
+        valid_rows, dim=0, return_inverse=True, return_counts=True))
+    bsz = new.numel()
+    log(f"  seg_unique at {label}: B={bsz} cap={cap} distinct={n_distinct}")
+    return kernel_row(
+        "seg_unique", "src/repro_torch/kernels/csrc/seg_unique.cu",
+        "src/repro/kernels/aggregate.py:110", err, timed, plain,
+        seg_unique_bytes(bsz, cap), lib_ms)
 
 
 def radix_pass_bytes(b, i, gather, carry, last, word):
@@ -757,22 +784,42 @@ def refine_ops(nv: int) -> int:
     return 4 * nv * (nv - 1) // 2 + 4 * nv + 3
 
 
-def refine_synthetic_checks(torch, np, dev):
-    """canonical_refine against its plain version on seeded quick codes of
-    every nv from 2 to 8 (labels included), orbits off and on, one launch
-    per nv and one for the whole mixed batch."""
+def refine_synthetic_codes(np) -> dict:
+    """Seeded quick codes of every nv from 2 to 8 (labels included),
+    ``REFINE_ROWS`` a nv (two thirds of it at nv 8), as numpy arrays."""
     from repro_torch.core import canon_math
-    from repro_torch.kernels import canonical_refine
 
     rng = np.random.default_rng(12)
-    parts, info = [], {}
+    out = {}
     for nv in range(2, 9):
         n = REFINE_ROWS if nv < 8 else REFINE_ROWS * 2 // 3
         upper = np.triu(rng.random((n, nv, nv)) < 0.5, 1)
         labels = rng.integers(0, 29, (n, nv))
-        codes = np.array([canon_math.encode(nv, upper[i] | upper[i].T,
-                                            labels[i]) for i in range(n)],
-                         dtype=np.int64)
+        out[nv] = np.array([canon_math.encode(nv, upper[i] | upper[i].T,
+                                              labels[i]) for i in range(n)],
+                           dtype=np.int64)
+    return out
+
+
+def refine_synthetic_time(torch, c, v, nv) -> dict:
+    """:func:`time_call` of one refine launch over the seeded codes of one
+    nv, with the profiler's device time where the call is host-bound (the
+    launches of small nv take microseconds)."""
+    from repro_torch.kernels import canonical_refine
+
+    return time_call(torch, lambda: canonical_refine.refine_cuda(
+        c, v, (nv,)), 5, 3, device=True)
+
+
+def refine_synthetic_checks(torch, np, dev):
+    """canonical_refine against its plain version on seeded quick codes of
+    every nv from 2 to 8 (labels included), orbits off and on, one launch
+    per nv and one for the whole mixed batch."""
+    from repro_torch.kernels import canonical_refine
+
+    parts, info = [], {}
+    for nv, codes in refine_synthetic_codes(np).items():
+        n = codes.shape[0]
         parts.append(codes)
         c = torch.from_numpy(codes).to(dev)
         v = torch.ones(n, dtype=torch.bool, device=dev)
@@ -785,16 +832,17 @@ def refine_synthetic_checks(torch, np, dev):
             errs.append(max_abs_err(torch, got, want))
         need(max(errs) == 0, f"canonical_refine differs from its plain "
              f"version at nv={nv} ({errs})")
-        ms = time_ms(torch, lambda: canonical_refine.refine_cuda(
-            c, v, (nv,)), 5, 3)
+        timed = refine_synthetic_time(torch, c, v, nv)
+        ms = timed["ms"]
         plain = time_ms(torch, lambda: canonical_refine.refine_codes_ref(
             c, v, (nv,)), **PLAIN)
         ops = n * math.factorial(nv) * refine_ops(nv)
-        info[nv] = {"rows": n, "ms": ms, "plain_ms": plain, "ops": ops,
+        info[nv] = {"rows": n, "ms": ms, "device_ms": timed["device_ms"],
+                    "plain_ms": plain, "ops": ops,
                     "bound_ms": ops / INT32_OPS_PER_S * 1e3}
         log(f"  canonical_refine nv={nv}: {n} rows, max_abs_err=0 (orbits "
-            f"off, on), ms={ms:.4f} plain_ms={plain:.4f} ops bound "
-            f"{info[nv]['bound_ms']:.4f} ms")
+            f"off, on), ms={ms:.4f} (profiler device {timed['device_ms']}) "
+            f"plain_ms={plain:.4f} ops bound {info[nv]['bound_ms']:.4f} ms")
     mixed = torch.from_numpy(np.concatenate(parts)).to(dev)
     v = torch.rand(mixed.shape[0], device=dev) < 0.95
     for orbits in (False, True):
@@ -808,6 +856,12 @@ def refine_synthetic_checks(torch, np, dev):
     log("  canonical_refine: mixed nv 2-8 batch with invalid rows, orbits "
         "off and on: max_abs_err=0")
     return info
+
+
+def refine_bytes(q: int, nv: int) -> int:
+    """Bytes the refine must move: codes and valid read, canon, sigma and
+    rep written (113 B a row), and the nv's permutation table read."""
+    return q * (24 + 1 + 24 + 32 + 32) + math.factorial(nv) * 32
 
 
 def refine_main_table(torch, table):
@@ -831,7 +885,7 @@ def refine_main_table(torch, table):
         u, uv, nvs), **PLAIN)
     q, live = u.shape[0], int(uv.sum())
     nv = nvs[0]
-    nbytes = q * (24 + 1 + 24 + 32 + 32) + math.factorial(nv) * 32
+    nbytes = refine_bytes(q, nv)
     ops = live * math.factorial(nv) * refine_ops(nv)
     log(f"  canonical_refine on the step-3 table: {q} rows, {live} valid, "
         f"nv {nv}")
@@ -1657,53 +1711,100 @@ def model_profile(torch, model, tokens, prompt, walls, top=8):
     return out
 
 
-def radix_sort_times(torch, np) -> dict:
-    """The radix sort of the ``repro_torch`` on ``sys.path`` at the main
-    path's two shapes on ``mico_like(0.1)``: the first size-2 chunk's child
-    codes, and the canonical codes that the device level 2 of a motifs run
-    under ``cost_model="force_device"`` re-bins (its last, step 3's). At
-    each, exact against the plain version, then timed."""
+def kernel_times(torch, np) -> dict:
+    """The redesigned kernels of the ``repro_torch`` on ``sys.path`` at the
+    main path's shapes on ``mico_like(0.1)``: the radix sort and
+    ``seg_unique`` at the first size-2 chunk's child codes and at the
+    canonical codes that the device level 2 of a motifs run under
+    ``cost_model="force_device"`` re-bins (its last, step 3's), the refine
+    at the distinct table that level 2 refines, and the refine of the
+    seeded codes of every nv from 2 to 8. At each, exact against the plain
+    version, then timed."""
     from repro_torch.core import RunConfig, aggregation, graph as G, run
     from repro_torch.core.apps import MotifsApp
-    from repro_torch.kernels import build, radix_bin as R
+    from repro_torch.kernels import aggregate, build, canonical_refine
+    from repro_torch.kernels import radix_bin as R
 
     build.library()
     g = G.mico_like(0.1)
     dg = G.to_device(g)
     ch = first_chunk(torch, np, dg, g)
-    shapes = {"chunk": (ch["qp"].codes.contiguous(), ch["child_nv"] > 0)}
+    shapes = {"chunk": (ch["qp"].codes.contiguous(), ch["child_nv"] > 0,
+                        min(ch["out_cap"], AGG_QCAP))}
     del ch
     with Level2Tables(aggregation) as tables:
         run(g, MotifsApp(max_size=3), RunConfig(cost_model="force_device"))
-    shapes["level2"] = level2_rebin_input(torch, tables.last)
+    table = tables.last
+    shapes["level2"] = (*level2_rebin_input(torch, table), table[3])
     out = {"card": torch.cuda.get_device_name(0),
            "nvidia_smi": nvidia_smi_line()}
-    for name, (codes, valid) in shapes.items():
+    for name, (codes, valid, cap) in shapes.items():
         err = max_abs_err(torch, R.radix_sort_codes(codes, valid),
                           R.radix_sort_codes_ref(codes, valid))
         need(err == 0, f"radix_sort_codes differs at {name} ({err})")
         timed = time_call(torch, lambda: R.radix_sort_codes(codes, valid))
+        new, sv, _ = seg_inputs(torch, codes, valid)
+        err = max_abs_err(torch, aggregate.seg_unique_cuda(new, sv, cap),
+                          aggregate.seg_unique_ref(new, sv, cap))
+        need(err == 0, f"seg_unique differs at {name} ({err})")
+        seg = time_call(torch, lambda: aggregate.seg_unique_cuda(
+            new, sv, cap), device=True)
         out[name] = {"rows": codes.shape[0], "valid": int(valid.sum()),
-                     "sort_ms": timed["ms"], "host_ms": timed["host_ms"]}
+                     "sort_ms": timed["ms"], "host_ms": timed["host_ms"],
+                     "seg_unique_ms": seg["ms"],
+                     "seg_unique_host_ms": seg["host_ms"],
+                     "seg_unique_device_ms": seg["device_ms"],
+                     "seg_unique_cap": cap,
+                     "seg_unique_bound_ms": seg_unique_bytes(
+                         codes.shape[0], cap) / HBM_BYTES_PER_S * 1e3}
+        del codes, valid, new, sv
+    u, _, uv, _, nvs = table
+    err = max_abs_err(torch, canonical_refine.refine_cuda(u, uv, nvs),
+                      canonical_refine.refine_codes_ref(u, uv, nvs))
+    need(err == 0, f"canonical_refine differs at level 2 ({err})")
+    out["level2"]["refine_ms"] = time_call(
+        torch, lambda: canonical_refine.refine_cuda(u, uv, nvs))["ms"]
+    out["level2"]["refine_bound_ms"] = (refine_bytes(u.shape[0], nvs[0])
+                                        / HBM_BYTES_PER_S * 1e3)
+    out["refine_synthetic_ms"], out["refine_synthetic_device_ms"] = {}, {}
+    for nv, codes in refine_synthetic_codes(np).items():
+        c = torch.from_numpy(codes).to(dg.device)
+        v = torch.ones(c.shape[0], dtype=torch.bool, device=dg.device)
+        err = max_abs_err(torch, canonical_refine.refine_cuda(c, v, (nv,)),
+                          canonical_refine.refine_codes_ref(c, v, (nv,)))
+        need(err == 0, f"canonical_refine differs at nv={nv} ({err})")
+        timed = refine_synthetic_time(torch, c, v, nv)
+        out["refine_synthetic_ms"][nv] = timed["ms"]
+        out["refine_synthetic_device_ms"][nv] = timed["device_ms"]
     return out
 
 
-def radix_ab(parent_src: Path) -> list:
-    """:func:`radix_sort_times` of ``parent_src``'s package and of this
+def kernel_ab(parent_src: Path) -> list:
+    """:func:`kernel_times` of ``parent_src``'s package and of this
     checkout's in turns (parent, change, change, parent), each in a process
     of its own that builds and loads its own kernels."""
     results = []
     for label, src in (("parent", parent_src), ("change", SRC),
                        ("change", SRC), ("parent", parent_src)):
         proc = subprocess.run(
-            [sys.executable, str(Path(__file__).resolve()), "--radix-sort",
+            [sys.executable, str(Path(__file__).resolve()), "--kernel-times",
              str(src.resolve())], stdout=subprocess.PIPE, text=True)
-        need(proc.returncode == 0, f"the radix sort of {src} failed")
+        need(proc.returncode == 0, f"the kernel times of {src} failed")
         res = json.loads(proc.stdout.strip().splitlines()[-1])
         res.update(label=label, src=str(src))
         results.append(res)
-        log(f"{label}: chunk {res['chunk']['sort_ms']:.4f} ms, level2 "
-            f"{res['level2']['sort_ms']:.4f} ms ({res['nvidia_smi']})")
+        c, l2 = res["chunk"], res["level2"]
+        dev = res["refine_synthetic_device_ms"]
+        syn = ", ".join(f"{nv}: {ms:.4f} (device {dev[nv]})"
+                        for nv, ms in res["refine_synthetic_ms"].items())
+        log(f"{label}: sort chunk {c['sort_ms']:.4f} ms, level2 "
+            f"{l2['sort_ms']:.4f} ms; seg_unique chunk "
+            f"{c['seg_unique_ms']:.4f} ms (host {c['seg_unique_host_ms']:.4f}"
+            f", device {c['seg_unique_device_ms']}), level2 "
+            f"{l2['seg_unique_ms']:.4f} ms (device "
+            f"{l2['seg_unique_device_ms']}); refine level2 "
+            f"{l2['refine_ms']:.4f} ms; refine by nv {{{syn}}} ms "
+            f"({res['nvidia_smi']})")
     return results
 
 
@@ -1711,27 +1812,28 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--json", type=Path, default=None,
                         help="also write the run's details to this file")
-    parser.add_argument("--radix-ab", type=Path, default=None,
+    parser.add_argument("--kernel-ab", type=Path, default=None,
                         metavar="PARENT_SRC",
-                        help="only time the radix sort of PARENT_SRC's "
-                        "repro_torch and of this checkout's at the chunk and "
-                        "level-2 shapes, in turns (parent, change, change, "
-                        "parent), and print the four results")
-    parser.add_argument("--radix-sort", type=Path, default=None,
-                        help=argparse.SUPPRESS)   # one turn of --radix-ab
+                        help="only time the radix sort, seg_unique and the "
+                        "canonical refine of PARENT_SRC's repro_torch and of "
+                        "this checkout's at the main path's shapes, in turns "
+                        "(parent, change, change, parent), and print the "
+                        "four results")
+    parser.add_argument("--kernel-times", type=Path, default=None,
+                        help=argparse.SUPPRESS)   # one turn of --kernel-ab
     args = parser.parse_args(argv)
     if not (SRC / "repro_torch").is_dir():
         raise SmokeFailure(f"no src/repro_torch beside {Path(__file__).name}")
-    sys.path.insert(0, str(args.radix_sort or SRC))
+    sys.path.insert(0, str(args.kernel_times or SRC))
     import numpy as np
     import torch
 
     need(torch.cuda.is_available(), "torch.cuda.is_available() is false")
-    if args.radix_sort is not None:
-        print(json.dumps(radix_sort_times(torch, np)))
+    if args.kernel_times is not None:
+        print(json.dumps(kernel_times(torch, np)))
         return 0
-    if args.radix_ab is not None:
-        results = radix_ab(args.radix_ab)
+    if args.kernel_ab is not None:
+        results = kernel_ab(args.kernel_ab)
         if args.json is not None:
             args.json.parent.mkdir(parents=True, exist_ok=True)
             args.json.write_text(json.dumps(results, indent=1))
@@ -1808,9 +1910,13 @@ def main(argv=None) -> int:
          RunConfig(graph_partition=PARTS)),
     ])
     row, extra["level2_step3"] = refine_main_table(torch, level2_table)
-    extra["radix_level2"] = radix_case(
-        torch, *level2_rebin_input(torch, level2_table), "level2")
+    rebin = level2_rebin_input(torch, level2_table)
+    extra["radix_level2"] = radix_case(torch, *rebin, "level2")
+    cap = level2_table[3]
+    extra["seg_unique_level2"] = seg_unique_case(torch, *rebin, cap, cap,
+                                                 "level2")
     kernels.append(row)
+    del rebin
     del level2_table
     build.reset_launches()
     torch.cuda.empty_cache()

@@ -35,6 +35,18 @@ from repro_torch.kernels.dispatch import on_cuda
 I32_SAT = 2**31 - 1
 
 
+#: (the C entry ``repro_seg_unique``, rows per tile), bound at the first
+#: launch
+_kernel = None
+
+
+def _bind():
+    global _kernel
+    lib = build.library()
+    _kernel = (lib.repro_seg_unique, int(lib.repro_seg_unique_tile()))
+    return _kernel
+
+
 def _empty_seg(cap: int, dev):
     z = torch.zeros((cap,), dtype=torch.int32, device=dev)
     return (z, z.clone(), torch.zeros((0,), dtype=torch.int32, device=dev),
@@ -69,8 +81,10 @@ def seg_unique_cuda(new: torch.Tensor, valid: torch.Tensor, cap: int):
     ``src[:min(n, cap)]`` are the first-occurrence indices of each distinct
     segment in ascending order (pad slots 0); ``counts`` the per-segment
     row totals; ``slot`` the per-row segment id (-1 invalid, unclamped past
-    ``cap``); ``n`` the unclamped distinct total. Valid rows must form a
-    prefix of the sort order (the code sort pushes invalid rows last)."""
+    ``cap``); ``n`` the unclamped distinct total. ``src`` and ``counts``
+    are views of one scratch buffer (with the kernel's tile words), which
+    one memset clears; ``n`` has its own four bytes, so that a caller that
+    keeps the total does not keep the windows."""
     if not on_cuda(new):
         return seg_unique_ref(new, valid, cap)
     for name, t in (("new", new), ("valid", valid)):
@@ -85,21 +99,15 @@ def seg_unique_cuda(new: torch.Tensor, valid: torch.Tensor, cap: int):
     if b == 0:
         return _empty_seg(cap, dev)
     new, valid = new.contiguous(), valid.contiguous()
-    src = torch.zeros((cap,), dtype=torch.int32, device=dev)
-    counts = torch.zeros((cap,), dtype=torch.int32, device=dev)
+    fn, tile = _kernel or _bind()
+    scratch = torch.empty((2 * cap + 2 * (-(-b // tile) + 1),),
+                          dtype=torch.int32, device=dev)
     slot = torch.empty((b,), dtype=torch.int32, device=dev)
-    n = torch.zeros((), dtype=torch.int32, device=dev)
-    lib = build.library()
-    tiles = torch.empty((-(-b // build.scan_tile()),), dtype=torch.int32,
-                        device=dev)
-    with torch.cuda.device(dev):
-        build.count_launch("seg_unique")
-        build.check(lib.repro_seg_unique(
-            new.data_ptr(), valid.data_ptr(), b, cap, src.data_ptr(),
-            counts.data_ptr(), slot.data_ptr(), n.data_ptr(),
-            tiles.data_ptr(), build.stream_of(new),
-        ), "seg_unique")
-    return src, counts, slot, n
+    n = torch.empty((), dtype=torch.int32, device=dev)
+    build.launch("seg_unique", fn, new.get_device(), new.data_ptr(),
+                 valid.data_ptr(), b, cap, scratch.data_ptr(),
+                 slot.data_ptr(), n.data_ptr())
+    return scratch[:cap], scratch[cap:2 * cap], slot, n
 
 
 def sort_codes(codes: torch.Tensor, valid: torch.Tensor):

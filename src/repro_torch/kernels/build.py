@@ -56,13 +56,13 @@ _SIGNATURES = {
     "repro_expand_canonical": [_P, _P, _P, _P, _L, _I, _L, _L, _L, _P, _P, _P,
                                _P],
     "repro_stream_compact": [_P, _L, _I, _P, _P, _P, _P],
-    "repro_seg_unique": [_P, _P, _L, _I, _P, _P, _P, _P, _P, _P],
-    "repro_scan_tile": [],
+    "repro_seg_unique": [_P, _P, _L, _I, _P, _P, _P, _P],
+    "repro_seg_unique_tile": [],
     "repro_radix_tile": [],
     "repro_radix_hist": [_P, _P, _L, _P, _P, _P, _P, _P],
     "repro_radix_scatter": [_I, _P, _P, _L, _P, _P, _P, _P, _P, _P, _P, _P,
                             _P, _P, _P, _P],
-    "repro_canonical_refine": [_P, _P, _L, _P, _P, _I, _I, _P, _P, _P, _P],
+    "repro_canonical_refine": [_P, _P, _L, _I, _P, _P, _I, _P, _P, _P, _P],
     "repro_gather_rows": [_P, _L, _L, _P, _L, _I, _P, _P],
     "repro_canonical_check_tiles": [_P, _P, _P, _P, _P, _L, _I, _L, _L, _P,
                                     _P],
@@ -190,11 +190,6 @@ def check(status: int, name: str) -> None:
     """Raise on a non-zero ``cudaGetLastError()`` from a launch."""
     if status != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {status}")
-
-
-def scan_tile() -> int:
-    """Flags per block of the three-pass scan kernels (scratch sizing)."""
-    return int(library().repro_scan_tile())
 
 
 def stream_of(t) -> int:

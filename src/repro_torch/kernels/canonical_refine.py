@@ -27,6 +27,7 @@ arithmetic). Same contract; dispatch follows
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, Tuple
 
 import numpy as np
@@ -190,6 +191,13 @@ def refine_codes_ref(codes, valid, nvs: tuple, *, with_orbits: bool = False,
 
 #: (device, nvs) -> (packed table, meta, lanes per row) of the kernel.
 _KERNEL_TABLES: Dict[tuple, tuple] = {}
+#: the kernel's block: threads, and the fewest and most rows of its tile
+REFINE_THREADS = 256
+MIN_TILE, MAX_TILE = 8, 1024
+#: permutations a lane should walk in a tile whose rows are all live
+LANE_BUDGET = 64
+#: device -> streaming multiprocessors
+_SMS: Dict[str, int] = {}
 
 
 def _kernel_tables(nvs: tuple, dev):
@@ -197,8 +205,8 @@ def _kernel_tables(nvs: tuple, dev):
     nv! rows of eight int32 words for each nv (the permutation as 8
     nibbles, then the 28 source-bit bytes), ``meta`` (18,) int32 (first
     row of each nv, then the row count of each nv, 0 when absent) and the
-    lanes per row (a power of two ≤ 32, from the largest nv!). Built once
-    per device and nv set."""
+    lanes of the widest row group (a power of two ≤ 32, from the largest
+    nv!). Built once per device and nv set."""
     live = tuple(sorted(set(int(v) for v in nvs if 2 <= int(v) <= MAX_NV)))
     key = (str(dev), live)
     got = _KERNEL_TABLES.get(key)
@@ -225,6 +233,32 @@ def _kernel_tables(nvs: tuple, dev):
     return got
 
 
+def _pow2_floor(x: int) -> int:
+    return 1 << max(0, int(x).bit_length() - 1)
+
+
+def tile_rows(q: int, group: int, perms: int, sms: int) -> int:
+    """Rows of one block's tile for a launch of ``q`` rows whose widest
+    row takes ``group`` lanes and whose largest nv! is ``perms``, on a card
+    of ``sms`` multiprocessors: at least one pass of the block's warps over
+    rows of the widest group; at most ``MAX_TILE``, and fewer where a tile
+    of live rows would give a lane more than ``LANE_BUDGET`` permutations
+    or where the batch would fill fewer than eight blocks a
+    multiprocessor, so that the search of a batch of large nv (whose rows
+    are all live) spreads over the whole card."""
+    least = REFINE_THREADS // group
+    work = _pow2_floor(REFINE_THREADS * LANE_BUDGET // perms)
+    fill = _pow2_floor(-(-q // (8 * sms)))
+    return max(least, MIN_TILE, min(MAX_TILE, work, fill))
+
+
+def _sms(dev) -> int:
+    key = str(dev)
+    if key not in _SMS:
+        _SMS[key] = torch.cuda.get_device_properties(dev).multi_processor_count
+    return _SMS[key]
+
+
 def refine_cuda(codes, valid, nvs: tuple, *, with_orbits: bool = False):
     """Mixed-nv refine by ``csrc/canonical_refine.cu`` in one launch (same
     contract as :func:`refine_codes_ref`); a CPU tensor takes the plain
@@ -245,14 +279,14 @@ def refine_cuda(codes, valid, nvs: tuple, *, with_orbits: bool = False):
     if q == 0:
         return canon, sigma, rep
     table, meta, group = _kernel_tables(nvs, dev)
+    perms = max((math.factorial(int(v)) for v in nvs
+                 if 2 <= int(v) <= MAX_NV), default=1)
     lib = build.library()
-    with torch.cuda.device(dev):
-        build.count_launch("canonical_refine")
-        build.check(lib.repro_canonical_refine(
-            codes.data_ptr(), valid.data_ptr(), q, table.data_ptr(),
-            meta.data_ptr(), group, int(with_orbits), canon.data_ptr(),
-            sigma.data_ptr(), rep.data_ptr(), build.stream_of(codes),
-        ), "canonical_refine")
+    build.launch("canonical_refine", lib.repro_canonical_refine,
+                 codes.get_device(), codes.data_ptr(), valid.data_ptr(), q,
+                 tile_rows(q, group, perms, _sms(dev)), table.data_ptr(),
+                 meta.data_ptr(), int(with_orbits), canon.data_ptr(),
+                 sigma.data_ptr(), rep.data_ptr())
     return canon, sigma, rep
 
 

@@ -4,18 +4,12 @@
 // The Pallas kernels these replace carry a running total across a grid that
 // runs in order (the revisited-window idiom of kernels/compact.py and
 // kernels/aggregate.py). CUDA blocks run in no fixed order, so a total that
-// crosses blocks is carried in one of two ways:
-//   * three launches over tiles of kTile flags (seg_unique.cu):
-//     1. count:   each block counts the set flags of its tile;
-//     2. offsets: one block turns the tile counts into exclusive offsets in
-//                 place and writes the grand total (the unclamped count);
-//     3. scatter: each block rescans its tile from its offset and writes;
-//   * one launch with a decoupled look-back (stream_compact.cu; Merrill &
-//     Garland, "Single-pass Parallel Prefix Scan with Decoupled
-//     Look-back", NVIDIA 2016): each block takes the next tile id from a
-//     counter, so every earlier tile is already running, publishes its
-//     tile's sum, and adds up its predecessors' published sums (tile_*
-//     below).
+// crosses blocks is carried by a decoupled look-back (Merrill & Garland,
+// "Single-pass Parallel Prefix Scan with Decoupled Look-back", NVIDIA
+// 2016): each block takes the next tile id from a counter, so every earlier
+// tile is already running, publishes its tile's sum, and adds up its
+// predecessors' published sums (tile_* below; digit_* for many sums a
+// tile).
 // A thread owns kItems consecutive flags, read as one 16-byte load when the
 // flag array is 16-byte aligned.
 #pragma once
@@ -201,23 +195,6 @@ __device__ __forceinline__ int digit_lookback(
       if ((unsigned)(w[k] >> 32 & 3u) == kDigitPrefix) return excl;
     }
   }
-}
-
-// Pass 2: one block turns tile counts into exclusive offsets (in place) and
-// writes the grand total to *total. Static: each including file gets its own.
-static __global__ void tile_offsets_kernel(int* __restrict__ tiles, int64_t n_tiles,
-                                    int* __restrict__ total) {
-  __shared__ int smem[kWarps + 1];
-  int carry = 0;
-  for (int64_t base = 0; base < n_tiles; base += kThreads) {
-    const int64_t t = base + threadIdx.x;
-    const int v = t < n_tiles ? tiles[t] : 0;
-    int sum;
-    const int excl = block_exclusive_scan(v, smem, &sum);
-    if (t < n_tiles) tiles[t] = carry + excl;
-    carry += sum;
-  }
-  if (threadIdx.x == 0) *total = carry;
 }
 
 }  // namespace repro

@@ -283,6 +283,107 @@ def test_radix_and_refine_kernels_match_plain_versions(cuda_device):
         assert build.LAUNCHES[name] > before[name], name
 
 
+SEG_SIZES = ["0", "1", "tile-1", "tile", "tile+1", "many tiles"]
+
+
+@pytest.mark.parametrize("case", ["random", "prefix", "all_invalid",
+                                  "one_segment", "every_row", "unaligned"])
+@pytest.mark.parametrize("size", SEG_SIZES)
+def test_seg_unique_matches_plain_version(cuda_device, size, case):
+    """Bit for bit against the plain version: B of 0, 1, one tile and one
+    row either side, and 4 x 132 tiles + 77 (chains of look-backs over more
+    tiles than the card holds at once); flags random with a valid mask
+    that is no prefix, a valid prefix (the main path's sort order), all
+    rows invalid, one segment over every tile (every tile adds to one
+    count), every row its own segment, and the flags as views at byte
+    offset 3 (byte-wise loads); cap 0, below the distinct count and above
+    it. Each call runs twice and answers the same."""
+    tile = build.library().repro_seg_unique_tile()
+    b = {"0": 0, "1": 1, "tile-1": tile - 1, "tile": tile,
+         "tile+1": tile + 1, "many tiles": 4 * 132 * tile + 77}[size]
+    g = torch.Generator(device=cuda_device).manual_seed(b + len(case))
+    valid = torch.rand(b + 3, generator=g, device=cuda_device) < 0.9
+    new = torch.rand(b + 3, generator=g, device=cuda_device) < 0.01
+    if case == "prefix":
+        valid = torch.arange(b + 3, device=cuda_device) < (b * 7) // 10
+    elif case == "all_invalid":
+        valid.fill_(False)
+    elif case == "one_segment":
+        valid.fill_(True)
+        new.fill_(False)
+        new[0] = True
+    elif case == "every_row":
+        valid.fill_(True)
+        new.fill_(True)
+    new, valid = ((new[3:], valid[3:]) if case == "unaligned"
+                  else (new[:b], valid[:b]))
+    distinct = int((new & valid).sum())
+    before = build.LAUNCHES["seg_unique"]
+    for cap in (0, distinct // 2, distinct + 5):
+        want = aggregate.seg_unique_ref(new, valid, cap)
+        for _ in range(2):
+            got = aggregate.seg_unique_cuda(new, valid, cap)
+            for a, w in zip(got, want):
+                assert a.shape == w.shape and torch.equal(a, w), cap
+        assert int(got[3]) == distinct
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["seg_unique"] == before + (6 if b else 0)
+
+
+@pytest.mark.parametrize("case", ["scattered", "all_invalid", "mixed",
+                                  "prefix"])
+def test_refine_kernel_matches_plain_version(cuda_device, case):
+    """Bit for bit against the plain version, orbits off and on: nv-3 rows
+    live at both sides of every tile edge and at random among invalid
+    rows; all rows invalid; mixed nv 2-8 (labels in every byte, some rows
+    invalid) under every nv and under a subset of them; the main path's
+    shape, a live prefix of 68,743 rows in 2^20 with zero rows after it.
+    The scattered and mixed batches are no multiple of the kernel's tile.
+    Each call runs twice and answers the same."""
+    dev = cuda_device
+    rng = np.random.default_rng(len(case))
+    if case == "mixed":
+        codes = np.concatenate([_refine_codes(rng, nv, 400 if nv < 8 else 60,
+                                              n_labels=29)
+                                for nv in range(2, 9)])
+        codes = codes[rng.permutation(len(codes))]
+        valid = rng.random(len(codes)) < 0.9
+        launches = ((2, 3, 4, 5, 6, 7, 8), (3, 5, 8))
+    elif case == "prefix":
+        codes = np.zeros((1 << 20, 3), np.int64)
+        codes[:68_743] = _codes(rng, 68_743).numpy()
+        valid = np.arange(1 << 20) < 68_743
+        launches = ((3,),)
+    else:
+        codes = _codes(rng, 20_000 + 77).numpy()
+        valid = rng.random(len(codes)) < 0.3
+        launches = ((3,),)
+    codes = torch.from_numpy(codes).to(dev)
+    if case == "scattered":
+        _, _, group = canonical_refine._kernel_tables((3,), dev)
+        tile = canonical_refine.tile_rows(
+            len(codes), group, 6,
+            torch.cuda.get_device_properties(dev).multi_processor_count)
+        assert len(codes) % tile
+        edges = np.arange(tile, len(codes), tile)
+        valid[edges - 1] = valid[edges] = True
+    elif case == "all_invalid":
+        valid[:] = False
+    valid = torch.from_numpy(valid).to(dev)
+    before = build.LAUNCHES["canonical_refine"]
+    for nvs in launches:
+        for orbits in (False, True):
+            want = canonical_refine.refine_codes_ref(codes, valid, nvs,
+                                                     with_orbits=orbits)
+            for _ in range(2):
+                got = canonical_refine.refine_cuda(codes, valid, nvs,
+                                                   with_orbits=orbits)
+                for a, w in zip(got, want):
+                    assert torch.equal(a, w), (nvs, orbits)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["canonical_refine"] == before + 4 * len(launches)
+
+
 @pytest.mark.parametrize("placement", ["device", "host_async"])
 def test_force_device_card_run_equals_cpu_run(cuda_device, placement):
     g = TG.mico_like(0.003)
