@@ -11,6 +11,9 @@ Phases, in order; any failure exits non-zero and prints no result:
      shapes the main path gives it on ``mico_like(0.1)`` (integers and
      booleans: exact equality), and time kernel, plain version and, where
      one exists, the one PyTorch call that computes the same function;
+     the expansion in the variant the chunk takes (named in the log) and
+     at a wide synthetic shape (2^17 vertices, k = 8) that takes the
+     global-read variant;
      the canonical refine also on seeded codes of every nv from 2 to 8,
      with and without orbits; the halo gather and the tile check on the
      partitioned layout (``to_partitioned(mico_like(0.1), 4)``, the halo
@@ -83,14 +86,16 @@ nor the JAX package.
 runs only the parent-against-change comparison of the redesigned kernels
 of ``PARENT_SRC``'s ``repro_torch`` (for example a ``git archive`` of the
 parent commit unpacked under ``archive_check/``) and of this checkout's:
-the whole radix sort and ``seg_unique`` at the chunk and level-2 shapes of
-phases 3 and 5, the canonical refine at the level-2 table and on the
-seeded codes of every nv from 2 to 8, in turns (parent, change, change,
-parent), each in a process of its own.
+the expansion at the chunk and at the wide shape of phase 3, the whole
+radix sort and ``seg_unique`` at the chunk and level-2 shapes of phases 3
+and 5, the canonical refine at the level-2 table and on the seeded codes
+of every nv from 2 to 8, in turns (parent, change, change, parent), each
+in a process of its own.
 """
 from __future__ import annotations
 
 import argparse
+import importlib
 import json
 import math
 import statistics
@@ -115,6 +120,11 @@ F32_FLOPS = 67e12
 CHUNK = 4096                   # RunConfig.chunk_size default
 REFINE_ROWS = 3000             # seeded quick codes per nv (2/3 of it at nv 8)
 AGG_QCAP = 4096                # RunConfig.agg_qcap default
+#: the expansion kernel's wide synthetic shape: a uniform random graph of
+#: 2^17 vertices (4,096 bitmap words a row) and 2^21 edges, and CHUNK
+#: parents of k = 8 random members: 8 x 4,096 words are past the kernel's
+#: shared-memory budget, so the global-read variant runs
+WIDE_N, WIDE_M, WIDE_K = 1 << 17, 1 << 21, 8
 PARTS = 4                      # graph shards of the partitioned runs
 MODEL = "qwen2.5-14b"          # phase 6's model, full widths and depth
 FWD_B, FWD_S = 4, 2048         # the timed forward: 4 prompts x 2,048 tokens
@@ -342,10 +352,65 @@ def first_chunk(torch, np, dg, g) -> dict:
                 out_cap=out_cap, child_nv=child_nv, qp=qp)
 
 
+def expand_bytes(torch, members, n_valid, cand, d, w, whole_rows):
+    """Bytes the expansion must move: members and n_valid read, 6 bytes a
+    slot written, each distinct member's neighbour row read, and of the
+    bitmap either each distinct member's row (``whole_rows``: the staged
+    variant's reads) or the distinct words its bit tests need (the valid
+    members' rows at the words of the slots with a candidate)."""
+    c, k = members.shape
+    n_rows = int(torch.unique(members).numel())
+    nbytes = c * k * 4 + c * 4 + n_rows * d * 4 + c * k * d * (4 + 1 + 1)
+    if whole_rows:
+        return nbytes + n_rows * w * 4
+    ok = torch.arange(k, device=members.device)[None, :] < n_valid[:, None]
+    col = (cand.clamp(min=0) >> 5).clamp(max=w - 1)          # (C, k, D)
+    key = (members.clamp(min=0).to(torch.int64)[:, :, None, None] * w
+           + col[:, None, :, :])
+    need_ = ok[:, :, None, None] & (cand >= 0)[:, None, :, :]
+    return nbytes + int(torch.unique(key[need_]).numel()) * 4
+
+
+def expand_wide_case(torch, np, ops) -> dict:
+    """The expansion kernel of ``ops`` (a ``canonical_check`` module) at
+    the wide synthetic shape (``WIDE_N``): exact against its plain version,
+    then timed, with its bound (the bitmap words its bit tests need)."""
+    from repro_torch.core import graph as G
+
+    dg = G.to_device(G.random_labeled(WIDE_N, WIDE_M, n_labels=29, seed=3,
+                                      power_law=False))
+    rng = np.random.default_rng(3)
+    members = torch.from_numpy(rng.integers(
+        0, WIDE_N, (CHUNK, WIDE_K)).astype(np.int32)).to(dg.device)
+    n_valid = torch.full((CHUNK,), WIDE_K, dtype=torch.int32,
+                         device=dg.device)
+    args = (members, n_valid, dg.nbr, dg.adj_bits)
+    got = ops.expand_canonical_cuda(*args)
+    err = max_abs_err(torch, got, ops.expand_canonical_ref(*args))
+    need(err == 0, f"expand_canonical differs at the wide shape ({err})")
+    timed = time_call(torch, lambda: ops.expand_canonical_cuda(*args),
+                      device=True)
+    w = dg.adj_bits.shape[1]
+    variant = getattr(ops, "expand_variant", None)
+    out = {"n": WIDE_N, "k": WIDE_K, "C": CHUNK, "D": dg.max_degree, "W": w,
+           "kept": int(got[2].sum()), "max_abs_err": err,
+           "variant": variant(WIDE_K, w) if variant else None,
+           "ms": timed["ms"], "host_ms": timed["host_ms"],
+           "device_ms": timed["device_ms"],
+           "bound_ms": expand_bytes(torch, members, n_valid, got[0],
+                                    dg.max_degree, w, False)
+           / HBM_BYTES_PER_S * 1e3}
+    del dg, got, args
+    torch.cuda.empty_cache()
+    return out
+
+
 def kernel_checks(torch, np, dg, g):
     """Phase 3: every kernel against its plain version at main-path shapes
     (the first size-2 chunk of mico_like(0.1) and what it produces)."""
     from repro_torch.kernels import build, compact
+    ops = importlib.import_module(
+        "repro_torch.kernels.canonical_check.canonical_check")
     from repro_torch.kernels.canonical_check.canonical_check import (
         canonical_check_cuda, canonical_check_ref, expand_canonical_cuda,
         expand_canonical_ref,
@@ -369,14 +434,21 @@ def kernel_checks(torch, np, dg, g):
         members, n_valid, dg.nbr, dg.adj_bits), device=True)
     plain = time_ms(torch, lambda: expand_canonical_ref(
         members, n_valid, dg.nbr, dg.adj_bits), **PLAIN)
-    nbytes = (c * k * 4 + c * 4 + n_member_rows * (d + w) * 4
-              + c * k * d * (4 + 1 + 1))
+    nbytes = expand_bytes(torch, members, n_valid, ch["cand"], d, w, True)
+    log(f"  expand_canonical at the chunk (C={c}, k={k}, D={d}, W={w}): "
+        f"the {ops.expand_variant(k, w)} variant")
     rows.append(kernel_row(
         "expand_canonical", "src/repro_torch/kernels/csrc/expand_canonical.cu",
         "src/repro/kernels/canonical_check/canonical_check.py:252",
         err, timed, plain, nbytes, None))
     cand, flat_rows = ch["cand"], ch["flat_rows"]
     del want
+    wide = expand_wide_case(torch, np, ops)
+    log(f"  expand_canonical at the wide shape (C={wide['C']}, k={wide['k']},"
+        f" n={wide['n']}, D={wide['D']}, W={wide['W']}): the "
+        f"{wide['variant']} variant, max_abs_err={wide['max_abs_err']} "
+        f"ms={wide['ms']:.4f} (device {wide['device_ms']}) "
+        f"bound_ms={wide['bound_ms']:.4f}, {wide['kept']} kept")
 
     # -- canonical_check: the unfused route's flat batch --------------------
     fm, fn_, fc = members[flat_rows], n_valid[flat_rows], cand.reshape(-1)
@@ -430,7 +502,8 @@ def kernel_checks(torch, np, dg, g):
     # -- radix passes: the same chunk's child codes, as the radix bin of the
     # chunk program gets them ----------------------------------------------
     codes, cvalid = qp.codes, child_nv > 0
-    extra = {"radix": radix_checks(torch, codes, cvalid, rows)}
+    extra = {"radix": radix_checks(torch, codes, cvalid, rows),
+             "expand_wide": wide}
     del qp, codes, cvalid, ch
     torch.cuda.empty_cache()
     extra["refine_synthetic"] = refine_synthetic_checks(torch, np, dev)
@@ -1718,12 +1791,15 @@ def kernel_times(torch, np) -> dict:
     canonical codes that the device level 2 of a motifs run under
     ``cost_model="force_device"`` re-bins (its last, step 3's), the refine
     at the distinct table that level 2 refines, and the refine of the
-    seeded codes of every nv from 2 to 8. At each, exact against the plain
+    seeded codes of every nv from 2 to 8, and the expansion at the chunk
+    and at the wide synthetic shape. At each, exact against the plain
     version, then timed."""
     from repro_torch.core import RunConfig, aggregation, graph as G, run
     from repro_torch.core.apps import MotifsApp
     from repro_torch.kernels import aggregate, build, canonical_refine
     from repro_torch.kernels import radix_bin as R
+    ops = importlib.import_module(
+        "repro_torch.kernels.canonical_check.canonical_check")
 
     build.library()
     g = G.mico_like(0.1)
@@ -1731,13 +1807,26 @@ def kernel_times(torch, np) -> dict:
     ch = first_chunk(torch, np, dg, g)
     shapes = {"chunk": (ch["qp"].codes.contiguous(), ch["child_nv"] > 0,
                         min(ch["out_cap"], AGG_QCAP))}
-    del ch
+    args = (ch["members"], ch["n_valid"], dg.nbr, dg.adj_bits)
+    err = max_abs_err(torch, ops.expand_canonical_cuda(*args),
+                      ops.expand_canonical_ref(*args))
+    need(err == 0, f"expand_canonical differs at the chunk ({err})")
+    timed = time_call(torch, lambda: ops.expand_canonical_cuda(*args),
+                      device=True)
+    variant = getattr(ops, "expand_variant", None)
+    expand = {"chunk": {
+        "ms": timed["ms"], "host_ms": timed["host_ms"],
+        "device_ms": timed["device_ms"],
+        "variant": (variant(args[0].shape[1], dg.adj_bits.shape[1])
+                    if variant else None)}}
+    del ch, args
+    expand["wide"] = expand_wide_case(torch, np, ops)
     with Level2Tables(aggregation) as tables:
         run(g, MotifsApp(max_size=3), RunConfig(cost_model="force_device"))
     table = tables.last
     shapes["level2"] = (*level2_rebin_input(torch, table), table[3])
     out = {"card": torch.cuda.get_device_name(0),
-           "nvidia_smi": nvidia_smi_line()}
+           "nvidia_smi": nvidia_smi_line(), "expand": expand}
     for name, (codes, valid, cap) in shapes.items():
         err = max_abs_err(torch, R.radix_sort_codes(codes, valid),
                           R.radix_sort_codes_ref(codes, valid))
@@ -1797,6 +1886,11 @@ def kernel_ab(parent_src: Path) -> list:
         dev = res["refine_synthetic_device_ms"]
         syn = ", ".join(f"{nv}: {ms:.4f} (device {dev[nv]})"
                         for nv, ms in res["refine_synthetic_ms"].items())
+        ex = res["expand"]
+        log(f"{label}: expand_canonical chunk {ex['chunk']['ms']:.4f} ms "
+            f"(device {ex['chunk']['device_ms']}), wide "
+            f"{ex['wide']['ms']:.4f} ms (device {ex['wide']['device_ms']}, "
+            f"bound {ex['wide']['bound_ms']:.4f})")
         log(f"{label}: sort chunk {c['sort_ms']:.4f} ms, level2 "
             f"{l2['sort_ms']:.4f} ms; seg_unique chunk "
             f"{c['seg_unique_ms']:.4f} ms (host {c['seg_unique_host_ms']:.4f}"
@@ -1814,8 +1908,9 @@ def main(argv=None) -> int:
                         help="also write the run's details to this file")
     parser.add_argument("--kernel-ab", type=Path, default=None,
                         metavar="PARENT_SRC",
-                        help="only time the radix sort, seg_unique and the "
-                        "canonical refine of PARENT_SRC's repro_torch and of "
+                        help="only time the expansion, the radix sort, "
+                        "seg_unique and the canonical refine of "
+                        "PARENT_SRC's repro_torch and of "
                         "this checkout's at the main path's shapes, in turns "
                         "(parent, change, change, parent), and print the "
                         "four results")

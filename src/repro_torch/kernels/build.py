@@ -53,8 +53,9 @@ _F = ctypes.c_float
 #: C entry point -> argument types (every entry returns cudaGetLastError()).
 _SIGNATURES = {
     "repro_canonical_check": [_P, _P, _P, _P, _L, _I, _L, _L, _P, _P],
-    "repro_expand_canonical": [_P, _P, _P, _P, _L, _I, _L, _L, _L, _P, _P, _P,
-                               _P],
+    "repro_expand_stage_bytes": [],
+    "repro_expand_canonical": [_P, _P, _P, _P, _L, _I, _L, _L, _L, _I, _P, _P,
+                               _P, _P],
     "repro_stream_compact": [_P, _L, _I, _P, _P, _P, _P],
     "repro_seg_unique": [_P, _P, _L, _I, _P, _P, _P, _P],
     "repro_seg_unique_tile": [],
@@ -213,7 +214,7 @@ def launch(name: str, fn, device: int, *args) -> None:
     ``device`` (an index), under a device guard only when that device is
     not the current one; raise on a non-zero status. One Python frame and
     no ``torch.cuda.Stream``: the wrappers whose host time counts
-    (rmsnorm, stream_compact) launch through it."""
+    (rmsnorm, stream_compact, expand_canonical) launch through it."""
     LAUNCHES[name] += 1
     stream = raw_stream(device)
     if device == torch.cuda.current_device():

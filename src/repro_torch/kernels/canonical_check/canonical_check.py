@@ -12,7 +12,9 @@ Three kernels (``csrc/canonical_check.cu``, ``csrc/canonical_check_tiles.cu``,
   * :func:`expand_canonical_cuda` — the *fused* expansion kernel: for every
     parent it enumerates the neighbour-table candidates and evaluates slot
     validity, not-a-member, first-occurrence dedup and the Alg.-2 check in
-    one pass, gathering each member↔candidate adjacency bit once.
+    one pass, reading each member↔candidate adjacency bit once: from the
+    members' bitmap rows staged in shared memory where they fit the
+    kernel's budget, else from device memory (:func:`expand_variant`).
 
 Each wrapper launches its kernel for CUDA tensors and takes the plain
 PyTorch version beside it (same contract) for CPU tensors. The Hopper
@@ -185,6 +187,15 @@ def expand_canonical_ref(members, n_valid, nbr, adj_bits):
     return cand, valid, valid & canon
 
 
+def expand_variant(k: int, words: int) -> str:
+    """The variant of the expansion kernel that a batch of ``k`` members
+    over a bitmap of ``words`` words a row takes: ``"staged"`` when the k
+    bitmap rows fit the kernel's shared-memory budget, else ``"global"``
+    (bit tests read from device memory). Needs the built library."""
+    budget = build.library().repro_expand_stage_bytes()
+    return "staged" if k * words * 4 <= budget else "global"
+
+
 def expand_canonical_cuda(members, n_valid, nbr, adj_bits):
     """Fused vertex expansion: members (C, k) int32, n_valid (C,) int32,
     nbr (N, D) int32 padded neighbour table, adj_bits (N, W) int32.
@@ -202,7 +213,9 @@ def expand_canonical_cuda(members, n_valid, nbr, adj_bits):
     _check_int32("n_valid", n_valid, 1, dev)
     _check_int32("nbr", nbr, 2, dev)
     _check_int32("adj_bits", adj_bits, 2, dev)
-    if not 1 <= k <= MAX_K or n_valid.shape[0] != c or adj_bits.shape[0] != n:
+    w = adj_bits.shape[1]
+    if (not 1 <= k <= MAX_K or n_valid.shape[0] != c or adj_bits.shape[0] != n
+            or (c and d and not (n and w))):
         raise ValueError(f"bad shapes: members {tuple(members.shape)}, "
                          f"n_valid {tuple(n_valid.shape)}, nbr {(n, d)}, "
                          f"adj_bits {tuple(adj_bits.shape)}")
@@ -214,15 +227,12 @@ def expand_canonical_cuda(members, n_valid, nbr, adj_bits):
     cand = torch.empty((c, k, d), dtype=torch.int32, device=dev)
     valid = torch.empty((c, k, d), dtype=torch.bool, device=dev)
     keep = torch.empty((c, k, d), dtype=torch.bool, device=dev)
-    if c == 0:
+    if c == 0 or d == 0:
         return cand, valid, keep
-    lib = build.library()
-    with torch.cuda.device(dev):
-        build.count_launch("expand_canonical")
-        build.check(lib.repro_expand_canonical(
-            members.data_ptr(), n_valid.data_ptr(), nbr.data_ptr(),
-            adj_bits.data_ptr(), c, k, d, n, adj_bits.shape[1],
-            cand.data_ptr(), valid.data_ptr(), keep.data_ptr(),
-            build.stream_of(members),
-        ), "expand_canonical")
+    staged = expand_variant(k, w) == "staged"
+    build.launch("expand_canonical", build.library().repro_expand_canonical,
+                 members.get_device(), members.data_ptr(), n_valid.data_ptr(),
+                 nbr.data_ptr(), adj_bits.data_ptr(), c, k, d, n, w,
+                 int(staged), cand.data_ptr(), valid.data_ptr(),
+                 keep.data_ptr())
     return cand, valid, keep

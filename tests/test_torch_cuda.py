@@ -27,6 +27,7 @@ from repro_torch.kernels.canonical_check.canonical_check import (
     canonical_check_tiles_ref,
     expand_canonical_cuda,
     expand_canonical_ref,
+    expand_variant,
 )
 from repro_torch.core import explore
 from repro_torch.configs.registry import ARCHS
@@ -117,6 +118,52 @@ def test_kernels_match_plain_versions(cuda_device):
     for name in ("canonical_check", "expand_canonical", "stream_compact",
                  "seg_unique"):
         assert build.LAUNCHES[name] > before[name], name
+
+
+#: (k, D, n) of the expansion cases: every k in {1, 2, 3, 8} against D of
+#: 1, 3, 17 and 300 and n a multiple of 32 and not (the bitmap's last word
+#: whole or partial); then k = 8 at full MiCo's n (100,000: 100,000 bytes
+#: of staged rows, above the 48 KB default) and at 2^17 + 5 (131,077
+#: vertices: the global-read variant).
+EXPAND_CASES = [(k, d, n) for k in (1, 2, 3, 8) for d in (1, 3, 17, 300)
+                for n in (256, 237)] + [(8, 60, 100_000), (8, 40, 131_077)]
+
+
+@pytest.mark.parametrize("k,d,n", EXPAND_CASES)
+def test_expand_kernel_matches_plain_version(cuda_device, k, d, n):
+    """The fused expansion kernel bit for bit against its plain version on
+    synthetic tables: neighbour rows with -1 pads anywhere (the contract
+    does not ask them to be left-packed), random bitmap words, C of 0, 1
+    and 777 parents whose n_valid runs from 0 to k, with real vertex ids or
+    -1 past n_valid and member ids at or past n (clamped into the tables).
+    Each batch runs twice; each call with C > 0 adds one launch."""
+    dev = cuda_device
+    gen = torch.Generator(device=dev).manual_seed(k * 1000 + d + n)
+    words = (n + 31) // 32
+    want_variant = "global" if n > 100_000 else "staged"
+    assert expand_variant(k, words) == want_variant
+    nbr = torch.randint(0, n, (n, d), generator=gen, device=dev,
+                        dtype=torch.int32)
+    nbr[torch.rand((n, d), generator=gen, device=dev) < 0.3] = -1
+    adj = torch.randint(-2**31, 2**31 - 1, (n, words), generator=gen,
+                        device=dev, dtype=torch.int32)
+    for c in (0, 1, 777):
+        members = torch.randint(0, n + 8, (c, k), generator=gen, device=dev,
+                                dtype=torch.int32)
+        n_valid = torch.randint(0, k + 1, (c,), generator=gen, device=dev,
+                                dtype=torch.int32)
+        past = torch.arange(k, device=dev)[None, :] >= n_valid[:, None]
+        pad = past & (torch.arange(c, device=dev)[:, None] % 2 == 0)
+        members = members.masked_fill(pad, -1)
+        want = expand_canonical_ref(members, n_valid, nbr, adj)
+        for _ in range(2):
+            before = build.LAUNCHES["expand_canonical"]
+            got = expand_canonical_cuda(members, n_valid, nbr, adj)
+            assert build.LAUNCHES["expand_canonical"] - before == (c > 0)
+            torch.cuda.synchronize()
+            for a, b, name in zip(got, want, ("cand", "valid", "keep")):
+                assert a.shape == (c, k, d) and a.dtype == b.dtype, name
+                assert torch.equal(a, b), (name, c)
 
 
 @pytest.mark.parametrize("app", [MotifsApp(max_size=3), CliquesApp(max_size=4)])

@@ -91,11 +91,17 @@ def test_canonical_check_plain_matches_pallas(b, k):
     )
 
 
-@pytest.mark.parametrize("c,k", [(0, 2), (1, 1), (13, 2), (33, 3)])
+@pytest.mark.parametrize("c,k", [(0, 2), (1, 1), (13, 2), (33, 3), (9, 8)])
 def test_expand_canonical_plain_matches_pallas(c, k):
+    """The k = 8 case also puts real vertex ids in the slots past n_valid:
+    the not-a-member rule reads all k members, the adjacency rules only
+    the valid ones."""
     jdg, tdg = _graphs(seed=c + 1)
     rng = np.random.default_rng(c * 7 + k)
     members, n_valid = _members(rng, c, k, jdg.n)
+    if k == 8:
+        for i in range(c):
+            members[i] = rng.choice(jdg.n, size=k, replace=False)
     want = expand_canonical_pallas(
         jnp.asarray(members.reshape(c, k)), jnp.asarray(n_valid), jdg.nbr,
         jdg.adj_bits, block_c=8, interpret=True,
