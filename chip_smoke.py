@@ -67,7 +67,41 @@ Phases, in order; any failure exits non-zero and prints no result:
         held to an f32 forward without kernels, with two wrong-attention
         controls that must fail the bound; one decode step
         and one forward under sync debug mode "error"; the peak device
-        bytes; a profile of one forward and one decode step.
+        bytes; a profile of one forward and one decode step;
+  7. frequent subgraph mining (``FSMApp``: edge-induced exploration,
+     min-image support from domain bitmaps, alpha pruning by support):
+     a. the card port against the CPU port on ``citeseer_like(0.1)``,
+        ``FSMApp(support=2, max_size=3)``, under the default config,
+        ``cost_model="force_device"``, ``device_aggregate=False`` and
+        ``graph_partition=4``, and, after b and c (whose host level 2
+        would otherwise find its memo filled), ``FSMApp(support=2,
+        max_size=4)`` under ``force_device`` (the device level 2 and its
+        orbit pass at nv 5) (patterns and supports, embedding counts,
+        per-step counters identical); one FSM chunk program per layout
+        under sync debug mode "error";
+     b. the main path at the paper's FSM graph, ``citeseer_like(1.0)``,
+        ``FSMApp(support=25, max_size=3)`` (the depth cut from 4: the
+        4-edge wave of ~2.6e8 embeddings runs the card out of memory in
+        its quick patterns, ``--fsm-full-depth``), and at the
+        example's scale, ``citeseer_like(0.3)``, ``FSMApp(support=8,
+        max_size=4)``, each under the default config and ``force_device``
+        (device level 2 with its orbit pass, the radix bin), the first also
+        under ``graph_partition=4``: identical patterns, a frequent
+        pattern of the largest size;
+     c. the domain stress: ``mico_like(0.1)``, ``FSMApp(support=100,
+        max_size=2)``, default config;
+     for each run of b and c the wall, per step the phase times, syncs,
+     chunks and the domain bitmap's bytes, the host seconds of the domain
+     scatter (with its copy) and of the min-image support, the peak device
+     bytes and the
+     launches per kernel (zeroed just before the run, read just after,
+     added to the kernels line); the host syncs within the window rule,
+     ``stream_compact`` and ``seg_unique`` launched in every run, under
+     ``force_device`` two refine launches (the orbit pass) a level-2
+     pass; the single-edge supports against a count from the edge list;
+     then the refine with orbits on the canonical table of step 4, exact
+     against its plain version and against ``automorphism_orbits``, timed
+     beside the plain version.
 
 Times are amortised (``time_call``): after a warm-up, one CUDA event pair
 around N back-to-back calls (N >= 20, or enough for 2 ms; one call for the
@@ -91,10 +125,17 @@ radix sort and ``seg_unique`` at the chunk and level-2 shapes of phases 3
 and 5, the canonical refine at the level-2 table and on the seeded codes
 of every nv from 2 to 8, in turns (parent, change, change, parent), each
 in a process of its own.
+
+    python3 chip_smoke.py --fsm-full-depth
+
+runs only phase 7b's graph to the 4 edges that 7b cuts it from, and prints
+its record, or logs the peak device bytes and fails with the allocation
+that ran the card out of memory.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import importlib
 import json
 import math
@@ -126,6 +167,20 @@ AGG_QCAP = 4096                # RunConfig.agg_qcap default
 #: shared-memory budget, so the global-read variant runs
 WIDE_N, WIDE_M, WIDE_K = 1 << 17, 1 << 21, 8
 PARTS = 4                      # graph shards of the partitioned runs
+#: phase 7 (FSM): the card-vs-CPU graph; the paper's FSM graph at full
+#: scale (citeseer_like(1.0): 3,312 vertices, 4,732 edges, 6 labels, paper
+#: Table 1) with the example's support of 8 at scale 0.3 scaled to the
+#: whole graph, its depth cut to 3 edges (its 4-edge frontier, ~2.6e8
+#: embeddings, does not fit one wave on one card), and at the example's
+#: own scale, support and depth (citeseer_like(0.3), 8, 4 edges); the
+#: domain stress on mico_like(0.1) at size 2
+FSM_SMALL = 0.1                # citeseer_like scale of 7a
+FSM_SMALL_APP = dict(support=2, max_size=3)
+FSM_SMALL4_APP = dict(support=2, max_size=4)   # 7a's nv-5 orbit pass
+FSM_MAIN_APP = dict(support=25, max_size=3)
+FSM_DEEP = 0.3                 # citeseer_like scale of the 4-edge runs
+FSM_DEEP_APP = dict(support=8, max_size=4)
+FSM_STRESS_APP = dict(support=100, max_size=2)
 MODEL = "qwen2.5-14b"          # phase 6's model, full widths and depth
 FWD_B, FWD_S = 4, 2048         # the timed forward: 4 prompts x 2,048 tokens
 SERVE_B, SERVE_P, SERVE_G = 4, 16, 32   # launch/serve.py's defaults
@@ -967,7 +1022,7 @@ def refine_main_table(torch, table):
         "src/repro/kernels/canonical_refine.py:266", err, timed, plain, nbytes,
         None, ops)
     program_ms = time_ms(torch, lambda: aggregation._level2_program(
-        u, c, uv, cap, nvs, True, "radix"), 3, 3)
+        u, c, uv, cap, nvs, False, True, "radix"), 3, 3)
     quick = u[:live].cpu().numpy()
     canon, sigma, _ = (t[:live].cpu().numpy() for t in got)
     pattern.clear_memo()
@@ -1053,11 +1108,13 @@ def step_counters(res):
     return [{f: getattr(s, f) for f in INT_FIELDS} for s in res.stats.steps]
 
 
-def card_vs_cpu(torch, run, G, cases):
-    """Phase 4: identical results from the card and the CPU port."""
+def card_vs_cpu(torch, run, make_graph, cases):
+    """Phases 4 and 7a: identical results from the card and the CPU port
+    on ``make_graph(scale)`` (patterns with their counts or supports,
+    embeddings per size, per-step counters)."""
     out = {}
     for name, scale, app, cfg in cases:
-        g = G.mico_like(scale)
+        g = make_graph(scale)
         cpu = run(g, app, cfg, device="cpu")
         gpu = run(g, app, cfg)
         need(cpu.patterns == gpu.patterns, f"{name}: patterns differ")
@@ -1067,7 +1124,10 @@ def card_vs_cpu(torch, run, G, cases):
         need(step_counters(cpu) == step_counters(gpu),
              f"{name}: step counters differ:\n{step_counters(cpu)}\n"
              f"{step_counters(gpu)}")
-        out[name] = {"patterns": len(gpu.patterns),
+        by_nv = {}
+        for code in gpu.patterns:
+            by_nv[code[0] & 0xF] = by_nv.get(code[0] & 0xF, 0) + 1
+        out[name] = {"patterns": len(gpu.patterns), "patterns_by_nv": by_nv,
                      "steps": step_counters(gpu)}
         log(f"  {name}: {len(gpu.patterns)} patterns, "
             f"{[s.n_children for s in gpu.stats.steps]} children per step, "
@@ -1076,20 +1136,28 @@ def card_vs_cpu(torch, run, G, cases):
 
 
 class Level2Tables:
-    """Records the distinct table each device level 2 refines (references
-    to ``_level2_program``'s inputs, which nothing writes after the call:
-    no copy adds to the run's time or peak memory), so the refine row can
-    be timed on the main path's own table after the run."""
+    """Records each device level 2 of a run (``_level2_program``): its nv
+    set and whether the orbit pass ran, the distinct table the last one
+    refined (its inputs) and the canonical table it produced (its
+    outputs). These are references, which nothing writes after the call:
+    no copy adds to the run's time or peak memory, and the refine can be
+    timed on the main path's own tables after the run."""
 
     def __init__(self, aggregation):
         self.agg = aggregation
         self.orig = aggregation._level2_program
-        self.last = None
+        self.calls, self.last, self.canon = [], None, None
 
     def __enter__(self):
-        def spy(u, c, uv, cap, nvs, *rest):
+        def spy(u, c, uv, cap, nvs, with_orbits, *rest):
+            out = self.orig(u, c, uv, cap, nvs, with_orbits, *rest)
+            self.calls.append({"nvs": tuple(nvs), "rows": int(cap),
+                               "orbits": bool(with_orbits)
+                               and out[-1] is not None,
+                               "device": u.device.type})
             self.last = (u, c, uv, cap, nvs)
-            return self.orig(u, c, uv, cap, nvs, *rest)
+            self.canon = (out[2], out[5], cap, tuple(nvs))
+            return out
 
         self.agg._level2_program = spy
         return self
@@ -1098,11 +1166,67 @@ class Level2Tables:
         self.agg._level2_program = self.orig
 
 
-def main_path(torch, np, run, RunConfig, G, build, apps):
-    """Phase 5: the main path on mico_like(0.1), kernels counted."""
+STEP_FIELDS = {"frontier": "n_frontier", "children": "n_children",
+               "n_chunks": "n_chunks", "n_host_syncs": "n_host_syncs",
+               "quick_patterns": "n_quick_patterns",
+               "canonical_patterns": "n_canonical_patterns",
+               "bytes_to_host": "bytes_to_host", "t_expand": "t_expand",
+               "t_aggregate": "t_aggregate", "t_canon": "t_canon",
+               "t_storage": "t_storage"}
+
+
+def counted_run(torch, run, build, totals, label, g, app, cfg, clock=None,
+                more=None):
+    """Phases 5 and 7b-c: one run through ``repro_torch.core.run`` with its
+    kernels counted (the counts zeroed just before the run, read just
+    after and added to ``totals``), its wall, its peak device bytes and its
+    steps; every step's host syncs within the window rule (the pilot, then
+    one stacked drain per window of chunks). ``clock`` (a
+    :class:`HostClock`) is entered around the run, and ``more(step)`` adds
+    fields to each step's record. Returns the record, the result and the
+    :class:`Level2Tables` spy."""
     from repro_torch.core import aggregation
     from repro_torch.core.runtime.serial import _DRAIN_WINDOW
 
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    with Level2Tables(aggregation) as spy, clock or contextlib.nullcontext():
+        build.reset_launches()
+        t0 = time.perf_counter()
+        res = run(g, app, cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(build.LAUNCHES)
+    for name, v in launches.items():
+        totals[name] += v
+    peak = torch.cuda.max_memory_allocated()
+    steps = []
+    for s in res.stats.steps:
+        bound = 1 + math.ceil(s.n_chunks / _DRAIN_WINDOW)
+        need(s.n_host_syncs <= (bound if s.n_chunks else 0),
+             f"{label} step {s.step}: {s.n_host_syncs} host syncs for "
+             f"{s.n_chunks} chunks")
+        step = {"step": s.step}
+        step.update({k: getattr(s, f) for k, f in STEP_FIELDS.items()})
+        step.update(more(s) if more else {})
+        steps.append(step)
+    rec = {"run": label, "wall_s": wall, "peak_bytes": peak,
+           "launches": launches, "steps": steps,
+           "patterns": len(res.patterns),
+           "chunk_signatures": len(res.stats.chunk_signatures),
+           "cost_model": res.stats.cost_model, "level2": spy.calls}
+    log(f"  {label}: wall {wall:.3f} s, peak {peak / 2**30:.2f} GiB, "
+        f"{len(res.patterns)} patterns, launches {launches}")
+    for step in steps:
+        log(f"    step {step['step']}: " + ", ".join(
+            f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
+            for k, v in step.items() if k != "step"))
+    return rec, res, spy
+
+
+def main_path(torch, np, run, RunConfig, G, build, apps):
+    """Phase 5: the main path on mico_like(0.1), kernels counted."""
     g = G.mico_like(0.1)
     deg = g.degrees().astype(np.int64)
     wedges = int((deg * (deg - 1) // 2).sum())
@@ -1110,48 +1234,11 @@ def main_path(torch, np, run, RunConfig, G, build, apps):
     runs, results = [], {}
     level2_table = None
     for label, app, cfg in apps:
-        torch.cuda.reset_peak_memory_stats()
-        torch.cuda.synchronize()
-        with Level2Tables(aggregation) as tables:
-            build.reset_launches()
-            t0 = time.perf_counter()
-            res = run(g, app, cfg)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            launches = dict(build.LAUNCHES)
-        for name, v in launches.items():
-            totals[name] += v
-        peak = torch.cuda.max_memory_allocated()
-        for s in res.stats.steps:
-            # the pilot, then one stacked drain per window of chunks
-            bound = 1 + math.ceil(s.n_chunks / _DRAIN_WINDOW)
-            need(s.n_host_syncs <= (bound if s.n_chunks else 0),
-                 f"{label} step {s.step}: {s.n_host_syncs} host syncs for "
-                 f"{s.n_chunks} chunks")
-        steps = [{
-            "step": s.step, "frontier": s.n_frontier, "children": s.n_children,
-            "n_chunks": s.n_chunks, "n_host_syncs": s.n_host_syncs,
-            "quick_patterns": s.n_quick_patterns,
-            "canonical_patterns": s.n_canonical_patterns,
-            "t_expand": s.t_expand, "t_aggregate": s.t_aggregate,
-            "t_canon": s.t_canon, "t_storage": s.t_storage,
-        } for s in res.stats.steps]
-        rec = {"run": label, "wall_s": wall, "peak_bytes": peak,
-               "launches": launches, "steps": steps,
-               "patterns": len(res.patterns),
-               "chunk_signatures": len(res.stats.chunk_signatures),
-               "cost_model": res.stats.cost_model}
+        rec, results[label], spy = counted_run(torch, run, build, totals,
+                                               label, g, app, cfg)
         runs.append(rec)
-        results[label] = res
-        if tables.last is not None:
-            level2_table = tables.last
-        log(f"  {label}: wall {wall:.3f} s, peak {peak / 2**30:.2f} GiB, "
-            f"launches {launches}")
-        for s in steps:
-            log(f"    step {s['step']}: frontier {s['frontier']} children "
-                f"{s['children']} chunks {s['n_chunks']} syncs "
-                f"{s['n_host_syncs']} quick {s['quick_patterns']} canonical "
-                f"{s['canonical_patterns']} t_expand {s['t_expand']:.4f} s")
+        if spy.last is not None:
+            level2_table = spy.last
 
     mot, fused, cli, fdev, pmot, pcli = (
         results["motifs_unfused"], results["motifs_fused"],
@@ -1217,6 +1304,321 @@ def main_path(torch, np, run, RunConfig, G, build, apps):
         f"motifs = wedges - 2 triangles; cliques per size "
         f"{ {k: len(v) for k, v in cli.embeddings.items()} }")
     return totals, runs, level2_table
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: frequent subgraph mining (edge mode, min-image domains)
+# ---------------------------------------------------------------------------
+
+class HostClock:
+    """Adds up the wall seconds of calls to the named attributes of their
+    owners while it is entered (the FSM runs' domain scatter, which ends in
+    the bitmap's one device-to-host copy, and the host's min-image
+    support)."""
+
+    def __init__(self, **targets):
+        self.targets = targets          # label -> (owner, attribute name)
+        self.seconds = {label: 0.0 for label in targets}
+
+    def __enter__(self):
+        self.orig = {}
+        for label, (owner, attr) in self.targets.items():
+            fn = getattr(owner, attr)
+            self.orig[label] = fn
+
+            def timed(*a, _fn=fn, _label=label, **k):
+                t0 = time.perf_counter()
+                try:
+                    return _fn(*a, **k)
+                finally:
+                    self.seconds[_label] += time.perf_counter() - t0
+
+            setattr(owner, attr, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for label, (owner, attr) in self.targets.items():
+            setattr(owner, attr, self.orig[label])
+
+
+def single_edge_supports(np, g, support: int) -> dict:
+    """The repo's own check of a step-1 FSM result, straight from the edge
+    list: the min-image support of each single-edge pattern (labels a, b)
+    is the smaller of the distinct a-endpoints and b-endpoints of its
+    edges, or, where a == b (the two positions are one orbit), the
+    distinct endpoints. Canonical code -> support, frequent ones only."""
+    from repro_torch.core import canon_math
+
+    la, lb = g.labels[g.edges[:, 0]], g.labels[g.edges[:, 1]]
+    lo, hi = np.minimum(la, lb), np.maximum(la, lb)
+    out = {}
+    for a, b in sorted(set(zip(lo.tolist(), hi.tolist()))):
+        sel = g.edges[(lo == a) & (hi == b)]
+        ends = np.concatenate([sel[:, 0], sel[:, 1]])
+        if a == b:
+            sup = len(np.unique(ends))
+        else:
+            lab = g.labels[ends]
+            sup = min(len(np.unique(ends[lab == a])),
+                      len(np.unique(ends[lab == b])))
+        if sup >= support:
+            adj = np.array([[0, 1], [1, 0]], dtype=bool)
+            code, _ = canon_math.canonicalize_one(
+                canon_math.encode(2, adj, np.array([a, b])))
+            out[tuple(int(x) for x in code)] = sup
+    return out
+
+
+def fsm_chunk_is_sync_free(torch, np, G):
+    """One FSM chunk program per route under sync debug mode "error": the
+    edge expansion, the edge check, the compaction and the children's edge
+    quick codes with the local-vertex table, on the whole graph and on the
+    partitioned layout (the halo of member-edge endpoints and the
+    incident-edge gather)."""
+    from repro_torch.core import explore
+    from repro_torch.core.apps import FSMApp
+
+    g = G.citeseer_like(1.0)
+    dg, pg = G.to_device(g), G.to_partitioned(g, PARTS)
+    rows = min(CHUNK, g.m)           # the first size-1 chunk: edges 0..
+    members = torch.arange(rows, dtype=torch.int32, device=dg.device)[:, None]
+    n_valid = torch.ones(rows, dtype=torch.int32, device=dg.device)
+    app = FSMApp(**FSM_MAIN_APP)
+    for graph in (dg, pg):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            explore.fused_chunk_step(
+                graph, members, n_valid, 1 << 16, mode="edge", app=app,
+                with_patterns=True, with_local_verts=True, use_pallas=True,
+                compact_kernel=True, aggregate_kernel=True,
+            )
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+
+
+def fsm_refine_orbits(torch, np, table) -> dict:
+    """The refine with orbits on the canonical table of the last device
+    level 2 (step 4 of the 4-edge force_device run): the kernel against
+    its plain version (exact), the orbit representatives against the
+    host's ``automorphism_orbits`` on every live row, and both timed."""
+    from repro_torch.core import canon_math
+    from repro_torch.kernels import canonical_refine
+
+    cu, cn, cap, nvs = table
+    live = int(cn)
+    cuv = torch.arange(cu.shape[0], device=cu.device) < live
+
+    def plain():
+        # permutation tiles of 8: the default tile of 1,024 holds all 120
+        # permutations of nv 5 at once, (rows, 120) int64 a word
+        return canonical_refine.refine_codes_ref(cu, cuv, nvs,
+                                                 with_orbits=True, tile=8)
+
+    got = canonical_refine.refine_cuda(cu, cuv, nvs, with_orbits=True)
+    want = plain()
+    torch.cuda.synchronize()
+    err = max_abs_err(torch, got, want)
+    need(err == 0, f"canonical_refine with orbits differs from its plain "
+         f"version on the FSM table ({err})")
+    codes = cu[:live].cpu().numpy()
+    host = np.stack([canon_math.automorphism_orbits(c) for c in codes])
+    need(np.array_equal(got[2][:live].cpu().numpy(), host),
+         "refine orbits differ from automorphism_orbits on the FSM table")
+    need((got[0][:live] == cu[:live]).all().item(),
+         "the refine moved a canonical code of the FSM table")
+    timed = time_call(torch, lambda: canonical_refine.refine_cuda(
+        cu, cuv, nvs, with_orbits=True), device=True)
+    del want
+    plain_ms = time_ms(torch, plain, **PLAIN)
+    row_nv = codes[:, 0] & 0xF
+    ops = sum(int((row_nv == nv).sum()) * math.factorial(nv) * refine_ops(nv)
+              for nv in nvs)
+    nbytes = cu.shape[0] * (24 + 1 + 24 + 32 + 32) + sum(
+        math.factorial(nv) * 32 for nv in nvs)
+    bound = max(nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S) * 1e3
+    by_nv = {int(nv): int((row_nv == nv).sum()) for nv in nvs}
+    log(f"  canonical_refine with orbits on the step-4 FSM table: "
+        f"{cu.shape[0]} rows, {live} live (by nv {by_nv}), max_abs_err=0, "
+        f"orbits == automorphism_orbits; ms={timed['ms']:.4f} (profiler "
+        f"device {timed['device_ms']}) plain_ms={plain_ms:.4f} "
+        f"bound_ms={bound:.4f}")
+    return {"rows": int(cu.shape[0]), "live": live, "by_nv": by_nv,
+            "ms": timed["ms"], "device_ms": timed["device_ms"],
+            "host_bound": timed["host_bound"], "plain_ms": plain_ms,
+            "bytes": nbytes, "ops": ops, "bound_ms": bound}
+
+
+def fsm_runs(torch, np, run, build, cases):
+    """Phases 7b-c: FSM runs, each a :func:`counted_run` with the domain
+    bitmap's bytes per step and the host seconds of the domain scatter
+    and the min-image support."""
+    from repro_torch.core import aggregation
+    from repro_torch.core.runtime.config import next_pow2
+    from repro_torch.core.runtime.serial import SerialBackend
+
+    totals = {name: 0 for name in build.LAUNCHES}
+    runs, results, table = [], {}, None
+    for label, g, app, cfg in cases:
+        clock = HostClock(
+            scatter_domains=(SerialBackend, "_scatter_domains"),
+            min_image_support=(aggregation, "min_image_support"))
+
+        def domains(s, n=g.n):
+            # the (Pc, 8, N) bitmap that crosses, and the flat device
+            # accumulator it is cut from (pc_cap * 8 * N + 1 bools)
+            pc = s.n_canonical_patterns
+            return {"domain_bytes": pc * 8 * n,
+                    "domain_device_bytes": (next_pow2(pc) * 8 * n + 1
+                                            if pc else 0)}
+
+        rec, res, spy = counted_run(torch, run, build, totals, label, g, app,
+                                    cfg, clock=clock, more=domains)
+        launches = rec["launches"]
+        by_size = {}
+        for code in res.patterns:
+            by_size[code[0] & 0xF] = by_size.get(code[0] & 0xF, 0) + 1
+        rec.update(n=g.n, m=g.m, host_s=clock.seconds,
+                   patterns_by_size=by_size)
+        runs.append(rec)
+        results[label] = res
+        if spy.canon is not None:
+            table = spy.canon
+        need(launches["stream_compact"] > 0 and launches["seg_unique"] > 0,
+             f"{label}: stream_compact or seg_unique never launched "
+             f"({launches})")
+        log(f"    domain scatter and copy "
+            f"{clock.seconds['scatter_domains']:.3f} s, min-image support "
+            f"{clock.seconds['min_image_support']:.3f} s")
+        if rec["cost_model"]["canonical_placement"] == "device":
+            need(spy.calls and all(c["orbits"] for c in spy.calls),
+                 f"{label}: the device level 2 ran without its orbit pass "
+                 f"({spy.calls})")
+            need(launches["canonical_refine"] == 2 * len(spy.calls),
+                 f"{label}: {launches['canonical_refine']} refine launches "
+                 f"for {len(spy.calls)} device level-2 passes with orbits")
+            need(launches["radix_hist"] > 0 and launches["radix_scatter"] > 0,
+                 f"{label}: the radix bin never launched")
+        # the repo's own check: the frequent single-edge patterns and their
+        # supports, counted from the edge list
+        want = single_edge_supports(np, g, app.support)
+        got = {c: v for c, v in res.patterns.items() if c[0] & 0xF == 2
+               and (c[0] >> 4) == 1}
+        need(got == want, f"{label}: single-edge supports differ from the "
+             f"edge list's ({len(got)} vs {len(want)} patterns)")
+        need(all(v >= app.support for v in res.patterns.values()),
+             f"{label}: a recorded pattern is below the support")
+    return totals, runs, results, table
+
+
+def fsm_phase(torch, np, run, RunConfig, G, build):
+    """Phase 7: FSM on the card. 7a the card port against the CPU port
+    (to 4 edges under force_device after 7b-c);
+    7b the main path at the paper's FSM graph, citeseer_like(1.0) to 3
+    edges (also partitioned) and citeseer_like(0.3) to 4 edges, each under
+    the default config and force_device (device level 2 with its orbit
+    pass, the radix bin);
+    7c the domain stress on mico_like(0.1) at size 2."""
+    from repro_torch.core.apps import FSMApp
+
+    log(f"[7a] FSM: card port vs CPU port on citeseer_like({FSM_SMALL})")
+    small = card_vs_cpu(torch, run, G.citeseer_like, [
+        ("fsm", FSM_SMALL, FSMApp(**FSM_SMALL_APP), RunConfig()),
+        ("fsm_force_device", FSM_SMALL, FSMApp(**FSM_SMALL_APP),
+         RunConfig(cost_model="force_device")),
+        ("fsm_host_level1", FSM_SMALL, FSMApp(**FSM_SMALL_APP),
+         RunConfig(device_aggregate=False)),
+        ("fsm_partitioned", FSM_SMALL, FSMApp(**FSM_SMALL_APP),
+         RunConfig(graph_partition=PARTS)),
+    ])
+    fsm_chunk_is_sync_free(torch, np, G)
+    log("  FSM chunk programs (whole graph and partitioned) ran under sync "
+        "debug mode 'error': no host sync")
+    build.reset_launches()
+    log(f"[7b] FSM main path on citeseer_like(1.0), {FSM_MAIN_APP}, and "
+        f"citeseer_like({FSM_DEEP}), {FSM_DEEP_APP}; [7c] domain stress on "
+        f"mico_like(0.1), {FSM_STRESS_APP}")
+    cite, deep = G.citeseer_like(1.0), G.citeseer_like(FSM_DEEP)
+    force = RunConfig(cost_model="force_device")
+    totals, runs, results, table = fsm_runs(
+        torch, np, run, build, [
+            ("fsm_citeseer", cite, FSMApp(**FSM_MAIN_APP), RunConfig()),
+            ("fsm_citeseer_force_device", cite, FSMApp(**FSM_MAIN_APP),
+             force),
+            ("fsm_citeseer_partitioned", cite, FSMApp(**FSM_MAIN_APP),
+             RunConfig(graph_partition=PARTS)),
+            ("fsm_mico_domains", G.mico_like(0.1), FSMApp(**FSM_STRESS_APP),
+             RunConfig()),
+            ("fsm_citeseer4", deep, FSMApp(**FSM_DEEP_APP), RunConfig()),
+            ("fsm_citeseer4_force_device", deep, FSMApp(**FSM_DEEP_APP),
+             force),
+        ])
+    part = results["fsm_citeseer_partitioned"]
+    need(part.patterns == results["fsm_citeseer"].patterns,
+         "partitioned FSM differs from the whole-graph FSM")
+    need(next(r for r in runs if r["run"] == "fsm_citeseer_partitioned")
+         ["launches"]["gather_rows"] > 0,
+         "gather_rows never launched in the partitioned FSM run")
+    for label, app in (("fsm_citeseer", FSM_MAIN_APP),
+                       ("fsm_citeseer4", FSM_DEEP_APP)):
+        base, fdev = results[label], results[label + "_force_device"]
+        need(fdev.patterns == base.patterns,
+             f"{label}: force_device FSM differs from the default FSM")
+        # a pattern's edges are its adjacency bits (edge-induced codes)
+        by_edges = {}
+        for code in base.patterns:
+            e = bin(code[0] >> 4).count("1")
+            by_edges[e] = by_edges.get(e, 0) + 1
+        need(by_edges.get(app["max_size"], 0) > 0,
+             f"{label}: no frequent pattern of {app['max_size']} edges: "
+             f"{by_edges}")
+        log(f"  {label}: canonical patterns per step "
+            f"{[len(a.canon_codes) for a in base.aggregates]}, frequent by "
+            f"edges {by_edges}; force_device identical")
+    need(table is not None and table[3] == (2, 3, 4, 5),
+         f"no 4-edge level-2 table was refined on the device: {table}")
+    # 7a to 4 edges after 7b-c, whose host level 2 would otherwise start
+    # from the canonical memo this run fills
+    log(f"[7a] FSM to 4 edges: card port vs CPU port on "
+        f"citeseer_like({FSM_SMALL}), {FSM_SMALL4_APP}, force_device")
+    from repro_torch.core import aggregation
+    with Level2Tables(aggregation) as spy:
+        small.update(card_vs_cpu(torch, run, G.citeseer_like, [
+            ("fsm4_force_device", FSM_SMALL, FSMApp(**FSM_SMALL4_APP),
+             force)]))
+    # the nv-5 orbit pass ran on the card, and its supports agree
+    need(any(c["device"] == "cuda" and c["orbits"] and 5 in c["nvs"]
+             for c in spy.calls) and
+         small["fsm4_force_device"]["patterns_by_nv"].get(5, 0) > 0,
+         f"fsm4_force_device: no nv-5 level 2 with orbits on the card "
+         f"({spy.calls})")
+    refine = fsm_refine_orbits(torch, np, table)
+    del table
+    build.reset_launches()
+    torch.cuda.empty_cache()
+    return totals, {"card_vs_cpu": small, "runs": runs,
+                    "refine_orbits_step4": refine}
+
+
+def fsm_full_depth(torch) -> dict:
+    """``--fsm-full-depth``: 7b's main run at the depth it is cut from."""
+    from repro_torch.core import RunConfig, graph as G, run
+    from repro_torch.core.apps import FSMApp
+    from repro_torch.kernels import build
+
+    log(f"card: {nvidia_smi_line()}")
+    app = FSMApp(**dict(FSM_MAIN_APP, max_size=4))
+    totals = {name: 0 for name in build.LAUNCHES}
+    try:
+        rec, _, _ = counted_run(torch, run, build, totals,
+                                "fsm_citeseer_4edges", G.citeseer_like(1.0),
+                                app, RunConfig())
+    except torch.OutOfMemoryError:
+        log(f"out of device memory; peak allocated "
+            f"{torch.cuda.max_memory_allocated()} bytes")
+        raise
+    return rec
 
 
 # ---------------------------------------------------------------------------
@@ -1916,6 +2318,12 @@ def main(argv=None) -> int:
                         "four results")
     parser.add_argument("--kernel-times", type=Path, default=None,
                         help=argparse.SUPPRESS)   # one turn of --kernel-ab
+    parser.add_argument("--fsm-full-depth", action="store_true",
+                        help="only run phase 7b's graph to the 4 edges it "
+                        "is cut from (citeseer_like(1.0), support 25, "
+                        "default config) and print its record; where the "
+                        "card runs out of memory, log the peak and exit "
+                        "with the failed allocation")
     args = parser.parse_args(argv)
     if not (SRC / "repro_torch").is_dir():
         raise SmokeFailure(f"no src/repro_torch beside {Path(__file__).name}")
@@ -1926,6 +2334,9 @@ def main(argv=None) -> int:
     need(torch.cuda.is_available(), "torch.cuda.is_available() is false")
     if args.kernel_times is not None:
         print(json.dumps(kernel_times(torch, np)))
+        return 0
+    if args.fsm_full_depth:
+        print(json.dumps(fsm_full_depth(torch)))
         return 0
     if args.kernel_ab is not None:
         results = kernel_ab(args.kernel_ab)
@@ -1976,7 +2387,7 @@ def main(argv=None) -> int:
 
     # ---- 4. card port vs CPU port ----------------------------------------
     log("[4] card port vs CPU port on mico_like(0.005) and (0.001)")
-    small = card_vs_cpu(torch, run, G, [
+    small = card_vs_cpu(torch, run, G.mico_like, [
         ("motifs", 0.005, MotifsApp(max_size=3), RunConfig()),
         ("cliques", 0.005, CliquesApp(max_size=4), RunConfig()),
         ("motifs_force_device", 0.005, MotifsApp(max_size=3),
@@ -2030,6 +2441,11 @@ def main(argv=None) -> int:
     log(f"[6c] main path: {MODEL} at full widths and depth")
     model_totals, extra["model_main_path"] = model_main_path(torch, build)
     for name, v in model_totals.items():
+        totals[name] += v
+
+    # ---- 7. frequent subgraph mining ---------------------------------------
+    fsm_totals, extra["fsm"] = fsm_phase(torch, np, run, RunConfig, G, build)
+    for name, v in fsm_totals.items():
         totals[name] += v
     for row in kernels:
         row["launches"] = totals[row["name"]]

@@ -4,7 +4,8 @@ port of ``repro.core.aggregation``.
 Level 1 runs on the device over all embeddings of the step: quick-pattern
 codes are binned into distinct codes and counts (:class:`DeviceLevel1`,
 ``kernels/aggregate.py`` sort + segment-reduce), and only O(Q) bytes — the
-distinct codes packed to 32-bit words and their counts — cross to the host.
+distinct codes packed to 32-bit words, their counts and, for FSM, the
+(Pc, 8, N) canonical domain bitmaps — cross to the host.
 Level 2 maps quick codes to canonical codes and folds the counts, at one
 of three placements (DESIGN.md §15): on the host
 (:func:`repro_torch.core.pattern.build_pattern_table`), on a background
@@ -62,15 +63,124 @@ def _unique_rows3(codes: np.ndarray):
     return uniq, inv
 
 
-def aggregate_rows(codes: np.ndarray,
-                   canon_fn=None) -> tuple[StepAggregates, np.ndarray]:
+def _host(x) -> np.ndarray:
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def quick_slot_ids(codes, valid):
+    """Host-side unique over the (B, 3) quick codes -> (unique (Q,3), inv
+    (B,)); rows with ``valid == False`` are mapped to slot -1."""
+    codes_np = _host(codes)
+    valid_np = _host(valid)
+    if not valid_np.any():
+        return np.zeros((0, 3), np.int64), np.full(len(codes_np), -1, np.int32)
+    uniq, inv = _unique_rows3(codes_np[valid_np])
+    full_inv = np.full(len(codes_np), -1, dtype=np.int32)
+    full_inv[valid_np] = inv.astype(np.int32)
+    return uniq, full_inv
+
+
+def _scatter_flat(flat, canon_slot, verts_canonical, ok, n_vertices: int):
+    """Set the bits of one batch in the flat (Pc * 8 * N + 1,) bool domain
+    buffer: vertex ``v`` at canonical position ``p`` of slot ``pc`` lands
+    at ``(pc * 8 + p) * N + v``; rows or positions not ``ok`` land in the
+    last slot, the dump (JAX drops such scatters; the port routes them
+    there, so no index is ever out of range)."""
+    kmax = verts_canonical.shape[1]
+    dump = flat.shape[0] - 1
+    idx = (
+        canon_slot[:, None].to(torch.int64) * (kmax * n_vertices)
+        + torch.arange(kmax, device=flat.device)[None, :] * n_vertices
+        + verts_canonical.clamp(min=0).to(torch.int64)
+    )
+    idx = torch.where(ok, idx, dump)
+    return flat.index_fill_(0, idx.reshape(-1), True)
+
+
+def domain_bitmaps(
+    canon_slot: torch.Tensor,       # (B,) int32 canonical slot per embedding
+    verts_canonical: torch.Tensor,  # (B, 8) int32 graph vertex at canonical pos
+    valid: torch.Tensor,            # (B,) bool
+    n_canon: int,
+    n_vertices: int,
+) -> torch.Tensor:
+    """FSM min-image domains (level 1): bool (Pc, 8, N) — vertex v appears
+    at canonical position p of some embedding of pattern pc. One scatter
+    into a flat buffer with a dump slot."""
+    kmax = verts_canonical.shape[1]
+    size = n_canon * kmax * n_vertices
+    flat = torch.zeros((size + 1,), dtype=torch.bool,
+                       device=verts_canonical.device)
+    ok = (valid[:, None] & (verts_canonical >= 0)
+          & (canon_slot[:, None] >= 0))
+    flat = _scatter_flat(flat, canon_slot, verts_canonical, ok, n_vertices)
+    return flat[:-1].reshape(n_canon, kmax, n_vertices)
+
+
+def min_image_support(bitmaps, canon_n_verts: np.ndarray,
+                      canon_orbits: np.ndarray) -> np.ndarray:
+    """Support(p) = min over pattern positions of |domain(position)| [7].
+
+    Domains are defined over *all* isomorphisms pattern->embedding; with
+    one fixed isomorphism per embedding the missing mappings are recovered
+    by OR-ing domains across each position's automorphism orbit
+    (``canon_math.automorphism_orbits``). Host numpy over the (Pc, 8, N)
+    bitmap that crossed to the host."""
+    bm = _host(bitmaps)                               # (Pc, 8, N) bool
+    pc, kmax, n = bm.shape
+    if pc == 0:
+        return np.zeros((0,), np.int64)
+    # orbit merge as one batched boolean matmul: eq[p, i, j] marks
+    # positions in the same orbit, so (eq @ bm)[p, pos] > 0 ORs the
+    # orbit-mates' domains; uint8 is safe, row sums are at most 8
+    orb = np.asarray(canon_orbits)[:, :kmax]
+    eq = (orb[:, :, None] == orb[:, None, :]).astype(np.uint8)   # (Pc, 8, 8)
+    merged = np.matmul(eq, bm.astype(np.uint8)) > 0              # (Pc, 8, N)
+    counts = merged.sum(axis=2)                       # (Pc, 8)
+    pos_ok = np.arange(kmax)[None, :] < np.asarray(canon_n_verts)[:, None]
+    counts = np.where(pos_ok, counts, np.iinfo(np.int64).max)
+    return counts.min(axis=1).astype(np.int64)
+
+
+def map_to_canonical_positions(
+    table: pattern_lib.PatternTable,
+    quick_slot: np.ndarray,       # (B,) int32
+    local_verts,                  # (B, 8) int32
+) -> tuple[np.ndarray, torch.Tensor]:
+    """Per-embedding canonical slot + vertices re-ordered to canonical
+    positions (position p holds the local vertex with sigma[local] = p).
+    The vertices come back as a tensor on ``local_verts``' device (the
+    CPU for a numpy input)."""
+    sigma = table.sigma[np.maximum(quick_slot, 0)]    # (B, 8) local -> canon
+    sigma_inv = np.argsort(sigma, axis=1)             # canon -> local
+    lv = _host(local_verts)
+    verts_canon = np.take_along_axis(lv, sigma_inv, axis=1)
+    canon_slot = np.where(
+        quick_slot >= 0, table.quick_to_canon[np.maximum(quick_slot, 0)], -1
+    ).astype(np.int32)
+    dev = (local_verts.device if isinstance(local_verts, torch.Tensor)
+           else "cpu")
+    return canon_slot, torch.from_numpy(np.ascontiguousarray(verts_canon)).to(
+        dev)
+
+
+def aggregate_rows(
+    g_n_vertices: int,
+    codes: np.ndarray,        # (B, 3) int64 quick codes (host)
+    local_verts,              # (B, 8) int32 (host); None iff not with_domains
+    with_domains: bool,
+    canon_fn=None,            # level-2 miss hook (device placement)
+) -> tuple[StepAggregates, np.ndarray]:
     """Full two-level aggregation for one step's embeddings over host
-    (B, 3) int64 quick codes — the ``device_aggregate=False`` reference
-    path. ``canon_fn`` is the level-2 miss hook of the device placement.
-    Returns (aggregates, per-embedding canonical slot)."""
+    quick codes — the ``device_aggregate=False`` reference path, with the
+    FSM domains scattered on the host. ``canon_fn`` is the level-2 miss
+    hook of the device placement. Returns (aggregates, per-embedding
+    canonical slot)."""
     codes = np.asarray(codes)
     b = len(codes)
-    if b == 0:
+    uniq, inv = quick_slot_ids(codes, np.ones(b, dtype=bool))
+    q = len(uniq)
+    if q == 0:
         empty = StepAggregates(
             canon_codes=np.zeros((0, 3), np.int64),
             counts=np.zeros((0,), np.int64),
@@ -80,19 +190,36 @@ def aggregate_rows(codes: np.ndarray,
             n_iso_checks=0,
         )
         return empty, np.full(b, -1, np.int32)
-    uniq, inv = _unique_rows3(codes)
     table, counts = finish_quick_level2(
-        uniq, np.bincount(inv, minlength=len(uniq)), canon_fn=canon_fn
+        uniq, np.bincount(inv, minlength=q), with_domains, canon_fn=canon_fn
     )
+    pc = len(table.canon_codes)
+    if with_domains:
+        # domains need every embedding's vertices re-ordered to canonical
+        # positions; without them the slot lookup is the whole mapping
+        canon_slot, verts_canon = map_to_canonical_positions(
+            table, inv, np.asarray(local_verts)
+        )
+        verts_canon = verts_canon.numpy()
+        kmax = verts_canon.shape[1]
+        bm = np.zeros((pc, kmax, g_n_vertices), dtype=bool)
+        ok = (verts_canon >= 0) & (canon_slot[:, None] >= 0)
+        rows, pos = np.nonzero(ok)
+        bm[canon_slot[rows], pos, verts_canon[rows, pos]] = True
+        supports = min_image_support(bm, table.canon_n_verts,
+                                     table.canon_orbits)
+    else:
+        canon_slot = table.quick_to_canon[inv].astype(np.int32)
+        supports = counts.copy()
     agg = StepAggregates(
         canon_codes=table.canon_codes,
         counts=counts,
-        supports=counts.copy(),
-        n_quick=len(uniq),
-        n_canonical=len(table.canon_codes),
+        supports=np.asarray(supports).astype(np.int64),
+        n_quick=q,
+        n_canonical=pc,
         n_iso_checks=table.n_iso_checks,
     )
-    return agg, table.quick_to_canon[inv].astype(np.int32)
+    return agg, canon_slot
 
 
 # ---------------------------------------------------------------------------
@@ -155,7 +282,7 @@ class DeviceLevel1:
         self.merge_cap = int(merge_cap)
         self.rows = 0                   # host-known rows folded so far
         self.parts: List[tuple] = []    # (uniq, counts i64, uvalid, cap, n)
-        self.batches: List[tuple] = []  # (inv, part_idx)  [fold_rows]
+        self.batches: List[tuple] = []  # (inv, lv, part_idx)  [fold_rows]
         self._merge_ns: List = []       # device n of every cross-batch merge
         self._corrupt = None            # device flag: a partial overflowed
         self._sat = None                # device flag: int32 partial saturated
@@ -167,9 +294,10 @@ class DeviceLevel1:
         self._maps: Optional[List] = None
 
     # -- folding ------------------------------------------------------------
-    def fold_rows(self, codes) -> None:
+    def fold_rows(self, codes, lv=None) -> None:
         """Fold one wave's (B, 3) quick codes (all rows valid); the per-row
-        slots stay on the device for the alpha masks."""
+        slots stay on the device for the alpha masks, and ``lv`` (device)
+        is retained for the FSM phase-2 domain scatter."""
         b = int(codes.shape[0])
         if b == 0:
             return
@@ -178,7 +306,7 @@ class DeviceLevel1:
             codes, cap, self._use_kernel, self._bin_method
         )
         self.parts.append((u, c, uv, cap, n))
-        self.batches.append((inv, len(self.parts) - 1))
+        self.batches.append((inv, lv, len(self.parts) - 1))
         self.rows += b
 
     def fold_partial(self, uniq, counts, n, cap: int, rows: int,
@@ -278,10 +406,10 @@ class DeviceLevel1:
         self._final = (u, c, uv, cap, n)
         return uniq, counts, nbytes + tbytes
 
-    # -- per-row slots (alpha masks) ------------------------------------------
+    # -- per-row slots (alpha masks, FSM phase 2) ---------------------------
     def batch_slots(self, i: int):
         """Device per-row slot ids of batch ``i`` in FINAL table order."""
-        inv, pidx = self.batches[i]
+        inv, _, pidx = self.batches[i]
         m = self._maps[pidx] if self._maps is not None else None
         return m[inv] if m is not None else inv
 
@@ -325,12 +453,14 @@ def build_step_aggregates(table: pattern_lib.PatternTable,
 
 
 def finish_quick_level2(uniq: np.ndarray, counts_q: np.ndarray,
-                        canon_fn=None):
+                        with_domains: bool = False, canon_fn=None):
     """Host level 2 over level-1 state: canonicalise the Q distinct quick
-    codes (memoised, :func:`pattern.build_pattern_table`) and fold the
-    quick counts to canonical slots. Returns ``(table, counts (Pc,)
-    int64)``."""
-    table = pattern_lib.build_pattern_table(uniq, canon_fn=canon_fn)
+    codes (memoised, :func:`pattern.build_pattern_table`, with the
+    canonical codes' orbits when domains are asked for) and fold the quick
+    counts to canonical slots. Returns ``(table, counts (Pc,) int64)``."""
+    table = pattern_lib.build_pattern_table(
+        uniq, with_orbits=with_domains, canon_fn=canon_fn
+    )
     counts = np.zeros(len(table.canon_codes), dtype=np.int64)
     np.add.at(counts, table.quick_to_canon, counts_q.astype(np.int64))
     return table, counts
@@ -393,46 +523,53 @@ class PendingLevel2:
 
 
 def submit_level2(uniq: np.ndarray, counts_q: np.ndarray) -> PendingLevel2:
-    """Queue one step's host level 2 on the background thread. It gets
-    numpy arrays only: the thread never touches a device tensor."""
-    fut = _async_executor().submit(finish_quick_level2, uniq, counts_q)
+    """Queue one step's host level 2 on the background thread (domains are
+    never requested here — ``async_level2_ok`` excludes domain apps). It
+    gets numpy arrays only: the thread never touches a device tensor."""
+    fut = _async_executor().submit(finish_quick_level2, uniq, counts_q, False)
     return PendingLevel2(fut, len(uniq))
 
 
-def _level2_program(u, c, uv, cap: int, nvs: tuple, use_kernel: bool,
-                    method: str):
+def _level2_program(u, c, uv, cap: int, nvs: tuple, with_orbits: bool,
+                    use_kernel: bool, method: str):
     """The device level 2: batched canonical refine of the O(Q) distinct
-    table + weighted quick→canonical re-bin. ``bin_rows`` emits distinct
-    codes in ascending lexicographic order — the same order as the host's
-    ``np.unique`` — so every output is bit-identical to the host path.
-    (The reference also refines the canonical table's orbits here for
-    FSM's domains; vertex mode has none.)"""
+    table + weighted quick→canonical re-bin (+ the orbit pass over the
+    canonical table for FSM). ``bin_rows`` emits distinct codes in
+    ascending lexicographic order — the same order as the host's
+    ``np.unique`` — so every output is bit-identical to the host path."""
     canon, sigma, _ = canonical_refine.refine_codes(
         u, uv, nvs, use_kernel=use_kernel,
     )
     canon = canon.masked_fill(~uv[:, None], 0)
-    cu, cc, q2c, cn, _ = agg_kernel.bin_rows(
+    cu, cc, q2c, cn, cuv = agg_kernel.bin_rows(
         canon, uv, cap, weights=c, use_kernel=use_kernel, method=method,
     )
-    return canon, sigma, cu, cc, q2c, cn
+    if with_orbits:
+        _, _, rep = canonical_refine.refine_codes(
+            cu, cuv, nvs, with_orbits=True, use_kernel=use_kernel,
+        )
+    else:
+        rep = None
+    return canon, sigma, cu, cc, q2c, cn, rep
 
 
 def device_level2(u, c, uv, cap: int, n_final: int, quick_codes: np.ndarray,
-                  counts_q: np.ndarray, *, nvs: tuple,
+                  counts_q: np.ndarray, *, nvs: tuple, with_domains: bool,
                   use_kernel: bool = False, method: str = "sort"):
     """Device-placed level 2 over the finalized device level-1 state.
 
     ``u``/``c``/``uv`` are the device distinct table (capacity ``cap``),
     ``n_final`` the already-drained distinct count, ``quick_codes`` /
     ``counts_q`` the host copies from the level-1 drain (the quick table
-    still crosses — the memo needs it; what this path removes is the host
-    permutation search). The canonical table can never overflow ``cap``
-    (Pc ≤ Q ≤ cap). Vertex mode only: no orbit domains.
+    still crosses — phase 2 and the memo need it; what this path removes
+    is the host permutation search). The canonical table can never
+    overflow ``cap`` (Pc ≤ Q ≤ cap). ``with_domains`` adds the orbit pass
+    over the canonical table and brings its (Pc, 8) orbits across.
 
     Returns ``(table, counts (Pc,) int64, bytes_to_host)``.
     """
-    canon_d, sigma_d, cu_d, cc_d, q2c_d, cn_d = _level2_program(
-        u, c, uv, cap, nvs, use_kernel, method
+    canon_d, sigma_d, cu_d, cc_d, q2c_d, cn_d, rep_d = _level2_program(
+        u, c, uv, cap, nvs, with_domains, use_kernel, method
     )
     q = int(n_final)
     pc = int(cn_d)
@@ -441,11 +578,15 @@ def device_level2(u, c, uv, cap: int, n_final: int, quick_codes: np.ndarray,
     cu = cu_d[:pc].cpu().numpy().astype(np.int64)
     cc = cc_d[:pc].cpu().numpy().astype(np.int64)
     canon_rows = canon_d[:q].cpu().numpy().astype(np.int64)
-    orbits = np.tile(
-        np.arange(pattern_lib.MAX_PATTERN_VERTICES, dtype=np.int32), (pc, 1)
-    )
+    if with_domains:
+        orbits = rep_d[:pc].cpu().numpy().astype(np.int32)
+    else:
+        orbits = np.tile(
+            np.arange(pattern_lib.MAX_PATTERN_VERTICES, dtype=np.int32),
+            (pc, 1),
+        )
     nbytes = (sigma.nbytes + q2c.nbytes + cu.nbytes + cc.nbytes
-              + canon_rows.nbytes + 4)
+              + canon_rows.nbytes + (orbits.nbytes if with_domains else 0) + 4)
     table = pattern_lib.PatternTable(
         quick_codes=quick_codes,
         canon_codes=cu,
@@ -457,12 +598,54 @@ def device_level2(u, c, uv, cap: int, n_final: int, quick_codes: np.ndarray,
     )
     # warm the host memo with the device results: a later host placement
     # over the same patterns is then pure cache hits
-    pattern_lib.seed_memo(quick_codes, canon_rows, sigma)
+    pattern_lib.seed_memo(
+        quick_codes, canon_rows, sigma,
+        canon_codes=cu if with_domains else None,
+        orbits=orbits if with_domains else None,
+    )
     return table, cc, nbytes
 
 
 def level2_nvs(app, size: int) -> tuple:
-    """The nv set of the patterns a step of ``size`` may emit: vertex mode
-    (the only mode the port runs) explores fixed-size embeddings, so
-    nv == size."""
+    """The nv set of the patterns a step of ``size`` may emit. Vertex mode
+    explores fixed-size embeddings (nv == size); edge mode's connected
+    embeddings of k edges span 2..min(k+1, 8) vertices (the tree upper
+    bound, capped at the 8-vertex encoding limit)."""
+    if getattr(app, "mode", "vertex") == "edge":
+        hi = min(int(size) + 1, pattern_lib.MAX_PATTERN_VERTICES)
+        return tuple(range(2, hi + 1))
     return (min(int(size), pattern_lib.MAX_PATTERN_VERTICES),)
+
+
+def level2_device_tables(table: pattern_lib.PatternTable, cap: int, device):
+    """Upload the level-2 mapping for device phase-2 consumers (the domain
+    scatter): ``q2c`` (cap,) int32 padded with -1 and ``sigma_inv``
+    (cap, 8) int32 (canonical pos -> local pos)."""
+    q = len(table.quick_codes)
+    q2c = np.full(cap, -1, np.int32)
+    q2c[:q] = table.quick_to_canon
+    si = np.zeros((cap, pattern_lib.MAX_PATTERN_VERTICES), np.int32)
+    si[:q] = np.argsort(table.sigma, axis=1)
+    return (torch.from_numpy(q2c).to(device),
+            torch.from_numpy(si).to(device))
+
+
+def scatter_canon_bitmaps(bm_flat, slot, lv, q2c, sigma_inv,
+                          pc_cap: int, n_vertices: int):
+    """Phase-2 FSM domain scatter (device): accumulate one batch of rows,
+    in place, into the flat (pc_cap * 8 * N + 1,) bool canonical-position
+    bitmap threaded across batches (last slot = dump).
+
+    ``slot`` is the per-row quick slot (final table order), ``q2c`` /
+    ``sigma_inv`` the uploaded level-2 tables; vertex ``lv[r,
+    sigma_inv[p]]`` lands at canonical position ``p`` — the same
+    re-ordering :func:`map_to_canonical_positions` applies on the host."""
+    want = pc_cap * pattern_lib.MAX_PATTERN_VERTICES * n_vertices + 1
+    if bm_flat.shape[0] != want:
+        raise ValueError(f"bm_flat: expected ({want},), got "
+                         f"{tuple(bm_flat.shape)}")
+    safe = slot.clamp(min=0).to(torch.int64)
+    cs = torch.where(slot >= 0, q2c[safe], -1)                     # (B,)
+    vc = torch.gather(lv, 1, sigma_inv[safe].to(torch.int64))      # (B, 8)
+    ok = (vc >= 0) & (cs[:, None] >= 0)
+    return _scatter_flat(bm_flat, cs, vc, ok, n_vertices)

@@ -52,3 +52,8 @@ def popcount_u32(x: torch.Tensor) -> torch.Tensor:
     x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
     x = (x + (x >> 4)) & 0x0F0F0F0F
     return (((x * 0x01010101) & 0xFFFFFFFF) >> 24).to(torch.int32)
+
+
+def count_bits(words: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """Total set bits along ``dim`` of packed 32-bit words."""
+    return popcount_u32(words).sum(dim=dim)

@@ -1,20 +1,19 @@
 """Vectorised embedding expansion — the inner loop of Algorithm 1, port of
-``repro.core.explore`` (vertex mode).
+``repro.core.explore``.
 
 One exploration step takes a frontier of canonical embeddings (each a row of
-vertex ids in visit order) and produces every canonical child obtained by
-adding one neighbouring vertex, deduplicated within the parent and filtered
-by the embedding-canonicality check. Candidates form a dense padded tensor
-``(C, k, D)`` from the padded neighbour table, and every pruning rule is a
-mask expression; the engine chunks the frontier so this tensor stays
-bounded.
+vertex ids or edge ids in visit order) and produces every canonical child
+obtained by adding one incident vertex/edge, deduplicated within the parent
+and filtered by the embedding-canonicality check. Candidates form a dense
+padded tensor ``(C, k, D)`` / ``(C, 2k, D)`` from the padded neighbour
+table, and every pruning rule is a mask expression; the engine chunks the
+frontier so this tensor stays bounded.
 
 :func:`fused_chunk_step` is the single device pass of the fused superstep
 pipeline (DESIGN.md §8): expansion + canonicality + app filter + stream
 compaction + the children's quick-pattern codes. On a
 :class:`PartitionedGraph` it opens with the tile-gather stage
-(:func:`build_tile_view`, DESIGN.md §11). Edge mode is not ported yet
-(ROADMAP.md).
+(:func:`build_tile_view`, DESIGN.md §11).
 """
 from __future__ import annotations
 
@@ -31,18 +30,12 @@ from repro_torch.kernels.canonical_check.canonical_check import expand_masks
 from repro_torch.kernels.canonical_check import ops as cc_ops
 
 
-def _require_vertex(mode: str) -> None:
-    if mode != "vertex":
-        raise NotImplementedError(
-            "edge-mode exploration comes with FSM; see ROADMAP.md"
-        )
-
-
 class TileView(NamedTuple):
     """One chunk's gathered halo of a :class:`PartitionedGraph`
-    (DESIGN.md §11): the ascending unique member vertices with their
-    neighbour and packed-adjacency rows gathered into dense tiles, plus the
-    whole id/label payload. Everything downstream of expansion
+    (DESIGN.md §11): the ascending unique *member* vertices (vertex mode)
+    or member-edge endpoints (edge mode) with their neighbour / incident-
+    edge / packed-adjacency rows gathered into dense tiles, plus the whole
+    id/label payload. Everything downstream of expansion
     (canonicality, app filters, the children's quick patterns) reads this
     view instead of a whole-graph table.
 
@@ -57,7 +50,7 @@ class TileView(NamedTuple):
     edge_uv: torch.Tensor      # (m, 2) int32
     edge_labels: torch.Tensor  # (m,) int32
     nbr_t: torch.Tensor        # (U, D) int32 gathered neighbour rows, pad -1
-    nbr_eid_t: torch.Tensor    # (U, 0) int32: edge mode (not ported) reads it
+    nbr_eid_t: torch.Tensor    # (U, D) int32 incident-edge rows ((U, 0) unused)
     adj_t: torch.Tensor        # (U, W) int32 gathered adjacency rows
 
     @property
@@ -111,12 +104,21 @@ def halo_cap(members_shape, mode: str, n: int) -> int:
 
 def halo_vertices(g, members, n_valid, mode: str):
     """Flat (possibly duplicated) halo vertex ids of a chunk: the members
-    themselves (vertex mode); invalid slots -1. Edge mode (member-edge
-    endpoints) comes with FSM."""
-    _require_vertex(mode)
-    k = members.shape[1]
+    themselves (vertex mode) or the member edges' endpoints (edge mode);
+    invalid slots -1."""
+    c, k = members.shape
     valid = torch.arange(k, device=members.device)[None, :] < n_valid[:, None]
-    return members.masked_fill(~valid, -1).reshape(-1)
+    if mode == "vertex":
+        return members.masked_fill(~valid, -1).reshape(-1)
+    verts = _edge_endpoints(g, members).reshape(c, 2 * k)
+    valid2 = valid.repeat_interleave(2, dim=1)
+    return verts.masked_fill(~valid2, -1).reshape(-1)
+
+
+def _edge_endpoints(g, members):
+    """(C, k, 2) endpoints of member edges; pads read edge 0 (clamped, as
+    the JAX gather clamps) and are masked by the caller."""
+    return g.edge_uv[members.clamp(0, g.edge_uv.shape[0] - 1)]
 
 
 def build_tile_view(
@@ -133,7 +135,6 @@ def build_tile_view(
     followed by row gathers from the shard-stacked tables through the
     global->flat translation of ``PartitionedGraph.flat_index``. No host
     sync: the tile capacity is a static function of the chunk shape."""
-    _require_vertex(mode)
     cap = halo_cap(members.shape, mode, g.n)
     verts = halo_vertices(g, members, n_valid, mode)
     uniq, _ = gather_kernel_lib.halo_unique(
@@ -142,20 +143,28 @@ def build_tile_view(
     fi, ok = g.flat_index(uniq)
     fi = torch.where(ok, fi, -1)
     d, w = g.max_degree, g.adj_sh.shape[2]
+    dev = members.device
     nbr_t = gather_kernel_lib.gather_rows(
         g.nbr_sh.reshape(-1, d), fi, -1, use_kernel=use_pallas
     )
-    adj_t = gather_kernel_lib.gather_rows(
-        g.adj_sh.reshape(-1, w), fi, 0, use_kernel=use_pallas
-    )
+    if mode == "edge":
+        nbr_eid_t = gather_kernel_lib.gather_rows(
+            g.nbr_eid_sh.reshape(-1, d), fi, -1, use_kernel=use_pallas
+        )
+        # edge mode never reads adjacency bits
+        adj_t = torch.zeros((cap, 1), dtype=torch.int32, device=dev)
+    else:
+        nbr_eid_t = torch.zeros((cap, 0), dtype=torch.int32, device=dev)
+        adj_t = gather_kernel_lib.gather_rows(
+            g.adj_sh.reshape(-1, w), fi, 0, use_kernel=use_pallas
+        )
     return TileView(
         uniq=uniq,
         labels=g.labels,
         edge_uv=g.edge_uv,
         edge_labels=g.edge_labels,
         nbr_t=nbr_t,
-        nbr_eid_t=torch.zeros((cap, 0), dtype=torch.int32,
-                              device=members.device),
+        nbr_eid_t=nbr_eid_t,
         adj_t=adj_t,
     )
 
@@ -176,7 +185,7 @@ class Expansion(NamedTuple):
     """Flattened candidate set for one frontier chunk (before compaction)."""
 
     rows: torch.Tensor         # (Ncand,) int32 parent row in the chunk
-    cand: torch.Tensor         # (Ncand,) int32 extension vertex id
+    cand: torch.Tensor         # (Ncand,) int32 extension vertex / edge id
     keep: torch.Tensor         # (Ncand,) bool — canonical, deduped, valid
     n_generated: torch.Tensor  # () int32 raw candidate slots that were valid
     n_canonical: torch.Tensor  # () int32 survivors of the canonicality check
@@ -271,6 +280,91 @@ def _expand_vertex_fused(g, members, n_valid) -> Expansion:
     )
 
 
+def expand_edge(
+    g: DeviceGraph,
+    members: torch.Tensor,   # (C, k) int32 edge ids, pad -1
+    n_valid: torch.Tensor,   # (C,) int32
+    *,
+    use_pallas: bool = False,
+) -> Expansion:
+    """Candidates for edge-induced exploration.
+
+    Endpoint slots: member i contributes endpoints (2i, 2i+1). A candidate
+    edge is drawn from the incident-edge list of an endpoint vertex; it is
+    kept only at its first producing slot: dropped if an earlier endpoint
+    slot holds the same vertex (whole incident list already enumerated) or
+    the candidate's other endpoint (edge enumerated from the other side).
+
+    On a :class:`TileView` the member-edge endpoints are the halo, so their
+    incident-edge and neighbour rows come from the gathered tiles.
+    """
+    c, k = members.shape
+    d = g.max_degree
+    k2 = 2 * k
+    dev = members.device
+    member_ok = torch.arange(k, device=dev)[None, :] < n_valid[:, None]
+    vert_ok = member_ok.repeat_interleave(2, dim=1)                # (C, 2k)
+    verts = _edge_endpoints(g, members).reshape(c, k2).masked_fill(
+        ~vert_ok, -1)
+
+    if isinstance(g, TileView):
+        ranks, in_tile = g.rank(verts)
+        ok3 = (vert_ok & in_tile)[:, :, None]
+        cand = g.nbr_eid_t[ranks].masked_fill(~ok3, -1)          # (C, 2k, D)
+        other = g.nbr_t[ranks].masked_fill(~ok3, -1)             # (C, 2k, D)
+    else:
+        safe_v = verts.clamp(min=0)
+        ok3 = vert_ok[:, :, None]
+        cand = g.nbr_eid[safe_v].masked_fill(~ok3, -1)
+        other = g.nbr[safe_v].masked_fill(~ok3, -1)
+    slot_ok = cand >= 0
+
+    is_member = (cand[:, :, :, None] == members[:, None, None, :]).any(-1)
+
+    # an earlier endpoint slot a' < a holding the same vertex, or holding
+    # the candidate's other endpoint, enumerated this candidate first
+    slot = torch.arange(k2, device=dev)
+    earlier = slot[:, None] < slot[None, :]                       # (a', a)
+    same_vertex = ((verts[:, :, None] == verts[:, None, :])
+                   & earlier[None]).any(dim=1)                   # (C, 2k)
+    hits_other = ((verts[:, :, None, None] == other[:, None, :, :])
+                  & earlier[None, :, :, None]).any(dim=1)        # (C, 2k, D)
+    dup = same_vertex[:, :, None] | hits_other
+
+    valid = slot_ok & ~is_member & ~dup
+
+    flat_cand = cand.reshape(c * k2 * d)
+    flat_rows = _flat_rows(c, k2 * d, dev)
+    flat_valid = valid.reshape(c * k2 * d)
+
+    if use_pallas:
+        # through the kernel dispatch, which routes edge mode to the plain
+        # check (there is no edge kernel, in either package)
+        canon = cc_ops.canonical_check(
+            g, members[flat_rows], n_valid[flat_rows], flat_cand,
+            mode="edge",
+        )
+    else:
+        canon = canonical.edge_check(
+            g, members[flat_rows], n_valid[flat_rows], flat_cand
+        )
+    keep = flat_valid & canon
+    return Expansion(
+        rows=flat_rows,
+        cand=flat_cand,
+        keep=keep,
+        n_generated=flat_valid.sum(dtype=torch.int32),
+        n_canonical=keep.sum(dtype=torch.int32),
+    )
+
+
+def _expand(g, members, n_valid, mode: str, use_pallas: bool, fused: bool):
+    if mode == "vertex":
+        return expand_vertex(g, members, n_valid, use_pallas=use_pallas,
+                             fused=fused)
+    return expand_edge(g, members, n_valid, use_pallas=use_pallas)
+
+
 def compact(
     members: torch.Tensor,   # (C, k) parents of the chunk
     exp: Expansion,
@@ -310,12 +404,10 @@ def expand_and_compact(
 ):
     """Expand + canonicality + compaction (no app filter). Returns
     ``(children, count, n_generated, n_canonical)``."""
-    _require_vertex(mode)
     if isinstance(g, PartitionedGraph):
         g = build_tile_view(g, members, n_valid, mode, use_pallas=use_pallas,
                             compact_kernel=compact_kernel)
-    exp = expand_vertex(g, members, n_valid, use_pallas=use_pallas,
-                        fused=fused)
+    exp = _expand(g, members, n_valid, mode, use_pallas, fused)
     children, count = compact(
         members, exp, exp.keep, out_cap, use_kernel=compact_kernel
     )
@@ -361,13 +453,11 @@ def fused_chunk_step(
     expansion, canonicality, the app filter, the children's quick patterns
     — runs on the :class:`TileView`; the output contract is unchanged. A
     pre-built ``TileView`` is accepted too."""
-    _require_vertex(mode)
     dev = members.device
     if isinstance(g, PartitionedGraph):
         g = build_tile_view(g, members, n_valid, mode, use_pallas=use_pallas,
                             compact_kernel=compact_kernel)
-    exp = expand_vertex(g, members, n_valid, use_pallas=use_pallas,
-                        fused=fused)
+    exp = _expand(g, members, n_valid, mode, use_pallas, fused)
     keep = exp.keep
     if app is not None:
         keep = keep & app.filter(g, members, n_valid, exp.rows, exp.cand)
@@ -379,7 +469,11 @@ def fused_chunk_step(
         child_nv = torch.where(
             torch.arange(out_cap, device=dev) < count, child_k, 0
         ).to(torch.int32)
-        qp = pattern_lib.quick_pattern_vertex(g, children, child_nv)
+        qp = (
+            pattern_lib.quick_pattern_vertex(g, children, child_nv)
+            if mode == "vertex"
+            else pattern_lib.quick_pattern_edge(g, children, child_nv)
+        )
         if with_aggregates:
             uniq, ucounts, _, n_uniq, _ = aggregate_kernel_lib.bin_rows(
                 qp.codes, child_nv > 0, min(out_cap, agg_qcap),
@@ -394,6 +488,7 @@ def fused_chunk_step(
             return (children, count, uniq, ucounts32,
                     n_uniq, exp.n_generated, exp.n_canonical)
         codes = qp.codes
+        # only FSM's min-image domains read the local-vertex table
         local_verts = (
             qp.local_verts
             if with_local_verts

@@ -6,8 +6,10 @@ in visit order plus the adjacency bits among local positions.
 
 Level 2 (once per distinct quick pattern, on the host): canonicalisation —
 the minimum encoding over all vertex-position permutations, batched and
-memoised process-wide in an LRU. The pure math lives in
-:mod:`repro_torch.core.canon_math`, a copy of the JAX package's module.
+memoised process-wide in an LRU, and for FSM's min-image domains the
+automorphism orbits of each canonical pattern, memoised the same way. The
+pure math lives in :mod:`repro_torch.core.canon_math`, a copy of the JAX
+package's module.
 
 Encoding (3 × int64 per pattern):
   w0 = n_vertices | adj_bits << 4     (pair (a<b) -> bit b*(b-1)/2 + a)
@@ -28,6 +30,8 @@ from repro_torch.core.canon_math import (
     MAX_PATTERN_VERTICES,
     _canonicalize_batch,
     _pair_bit,
+    automorphism_orbits,
+    decode,
 )
 
 
@@ -69,11 +73,73 @@ def quick_pattern_vertex(
     return QuickPatterns(codes=codes, local_verts=lv, n_verts=n_valid)
 
 
-def quick_pattern_edge(g, members, n_valid):
-    """Quick patterns of edge-induced embeddings: edge mode (FSM) is not
-    ported yet (ROADMAP.md, queue A)."""
-    raise NotImplementedError(
-        "edge-mode quick patterns come with FSM; see ROADMAP.md"
+def quick_pattern_edge(
+    g: DeviceGraph, members: torch.Tensor, n_valid: torch.Tensor
+) -> QuickPatterns:
+    """Quick patterns of edge-induced embeddings.
+
+    Local vertices = endpoint sequence deduplicated in first-appearance
+    order; adjacency bits cover *member edges only* (edge-induced
+    semantics: non-member graph edges between the same vertices are
+    excluded). ``g`` may be a :class:`DeviceGraph` or a tile view: only
+    ``edge_uv`` and ``labels`` are read.
+    """
+    b, k = members.shape
+    k2 = 2 * k
+    dev = members.device
+    pos = torch.arange(k, device=dev)
+    valid_e = pos[None, :] < n_valid[:, None]                    # (B, k)
+    safe = members.clamp(0, g.edge_uv.shape[0] - 1)
+    verts = g.edge_uv[safe].reshape(b, k2)                       # (B, 2k)
+    vert_ok = valid_e.repeat_interleave(2, dim=1)
+    verts = verts.masked_fill(~vert_ok, -1)
+
+    # first-appearance local ids: the first slot holding each vertex
+    t = torch.arange(k2, device=dev)
+    same = ((verts[:, :, None] == verts[:, None, :])
+            & vert_ok[:, :, None] & vert_ok[:, None, :])
+    # argmax of the first True (0 where none, as jnp.argmax gives); int8
+    # keeps the (B, 2k, 2k) temporary at a byte a pair
+    first_idx = torch.where(same, t.to(torch.int8)[:, None], k2).amin(dim=1)
+    first_idx = torch.where(first_idx == k2, 0, first_idx).to(torch.int64)
+    is_first = (first_idx == t[None, :]) & vert_ok
+    rank = torch.cumsum(is_first.to(torch.int64), dim=1) - 1    # local ids
+    local_id = torch.gather(rank, 1, first_idx)                  # (B, 2k)
+    local_id = local_id.masked_fill(~vert_ok, -1)
+    n_verts = is_first.sum(dim=1, dtype=torch.int32)
+
+    # local vertex table: first-appearance vertices scattered to their rank,
+    # every other slot (a -1) to the dump column 8, so each kept column is
+    # written once and the scatter is deterministic
+    scatter_pos = torch.where(is_first, rank, MAX_PATTERN_VERTICES)
+    lv = torch.full((b, MAX_PATTERN_VERTICES + 1), -1, dtype=torch.int32,
+                    device=dev)
+    lv.scatter_(1, scatter_pos, verts.masked_fill(~is_first, -1).to(
+        torch.int32))
+    lv = lv[:, :MAX_PATTERN_VERTICES].contiguous()
+
+    # adjacency bits from member edges
+    a_id = local_id[:, 0::2]                                     # (B, k)
+    b_id = local_id[:, 1::2]
+    lo = torch.minimum(a_id, b_id)
+    hi = torch.maximum(a_id, b_id)
+    bit = torch.where(valid_e, (hi * (hi - 1)) // 2 + lo, 0)
+    bits = torch.zeros((b,), dtype=torch.int64, device=dev)
+    for j in range(k):
+        contrib = torch.where(valid_e[:, j], torch.ones_like(bits) << bit[:, j],
+                              0)
+        bits = bits | contrib
+
+    labels = g.labels[lv.clamp(min=0)].masked_fill(lv < 0, 0)    # (B, 8)
+    w1 = torch.zeros((b,), dtype=torch.int64, device=dev)
+    w2 = torch.zeros((b,), dtype=torch.int64, device=dev)
+    for i in range(4):
+        w1 = w1 | (labels[:, i].to(torch.int64) << (8 * i))
+        w2 = w2 | (labels[:, i + 4].to(torch.int64) << (8 * i))
+    w0 = n_verts.to(torch.int64) | (bits << 4)
+    return QuickPatterns(
+        codes=torch.stack([w0, w1, w2], dim=1), local_verts=lv,
+        n_verts=n_verts,
     )
 
 
@@ -92,11 +158,13 @@ _MEMO_LOCK = threading.Lock()
 #: exactly this map), so level 2 pays the permutation search once per
 #: distinct pattern per process, not per step.
 _CANON_CACHE: "OrderedDict[bytes, tuple]" = OrderedDict()
+#: canonical code tuple -> orbit representatives (8,) int32 (FSM domains).
+_ORBIT_CACHE: "OrderedDict[tuple, np.ndarray]" = OrderedDict()
 _MEMO_CAP = DEFAULT_MEMO_CAP
 
 
 def set_memo_cap(cap: Optional[int]) -> int:
-    """Set the LRU cap of the canonical memo; returns the old cap.
+    """Set the LRU cap of the canonical/orbit memos; returns the old cap.
 
     ``None`` restores :data:`DEFAULT_MEMO_CAP`. Shrinking evicts
     least-recently-used entries immediately.
@@ -107,6 +175,8 @@ def set_memo_cap(cap: Optional[int]) -> int:
         _MEMO_CAP = DEFAULT_MEMO_CAP if cap is None else max(1, int(cap))
         while len(_CANON_CACHE) > _MEMO_CAP:
             _CANON_CACHE.popitem(last=False)
+        while len(_ORBIT_CACHE) > _MEMO_CAP:
+            _ORBIT_CACHE.popitem(last=False)
     return old
 
 
@@ -114,13 +184,13 @@ def clear_memo() -> None:
     """Drop every memoised canonicalisation (cold timing, parity tests)."""
     with _MEMO_LOCK:
         _CANON_CACHE.clear()
+        _ORBIT_CACHE.clear()
 
 
-def memo_sizes() -> int:
-    """Canon entries currently memoised. (The reference also counts an
-    orbit memo; only FSM's domains read orbits, and the port keeps none.)"""
+def memo_sizes() -> tuple[int, int]:
+    """(canon entries, orbit entries) currently memoised."""
     with _MEMO_LOCK:
-        return len(_CANON_CACHE)
+        return len(_CANON_CACHE), len(_ORBIT_CACHE)
 
 
 def _memo_get_canon(keys: list) -> dict:
@@ -158,6 +228,7 @@ class PatternTable(NamedTuple):
 
 def build_pattern_table(
     unique_quick: np.ndarray,
+    with_orbits: bool = True,
     canon_fn: Optional[Callable[[np.ndarray], tuple]] = None,
 ) -> PatternTable:
     """Level 2 for one step's distinct quick patterns, batched + memoised.
@@ -167,14 +238,16 @@ def build_pattern_table(
     the permutation search runs once per distinct pattern per process —
     across supersteps AND runs. ``n_iso_checks`` stays the *conceptual*
     per-step invocation count (Table 4 semantics), not the cache-miss
-    count. Orbit representatives are the identity: only FSM's min-image
-    domains consume orbits, and FSM is not ported yet.
+    count.
 
     ``canon_fn`` (optional) replaces the host permutation search for the
     cache *misses*: it receives the (M, 3) int64 miss codes (mixed nv) and
     returns ``(canon (M, 3) int64, sigma (M, 8) int32)`` under the exact
     :func:`canonicalize_one` contract — the hook the device placement
     (``kernels/canonical_refine``) plugs into. Memoisation still applies.
+
+    ``with_orbits=False`` skips the automorphism-orbit search (only FSM's
+    min-image domains consume orbits) and returns identity representatives.
     """
     q = len(unique_quick)
     canon = np.zeros((q, 3), dtype=np.int64)
@@ -204,25 +277,68 @@ def build_pattern_table(
     for i, k in enumerate(keys):
         canon[i], sigma[i] = local[k]
     uniq_canon, inv = np.unique(canon.reshape(q, 3), axis=0, return_inverse=True)
+    if with_orbits and len(uniq_canon):
+        orbits = np.stack([_orbits_cached(c) for c in uniq_canon], axis=0)
+    else:
+        orbits = np.tile(
+            np.arange(MAX_PATTERN_VERTICES, dtype=np.int32),
+            (len(uniq_canon), 1),
+        )
     return PatternTable(
         quick_codes=unique_quick,
         canon_codes=uniq_canon,
         quick_to_canon=inv.astype(np.int32),
         sigma=sigma,
         canon_n_verts=(uniq_canon[:, 0] & 0xF).astype(np.int32),
-        canon_orbits=np.tile(
-            np.arange(MAX_PATTERN_VERTICES, dtype=np.int32),
-            (len(uniq_canon), 1),
-        ),
+        canon_orbits=orbits,
         n_iso_checks=q,
     )
 
 
-def seed_memo(quick_codes: np.ndarray, canon: np.ndarray,
-              sigma: np.ndarray) -> None:
-    """Warm the memo with externally computed (device) canonicalisations so
-    later host passes over the same patterns are cache hits."""
+def _orbits_cached(code: np.ndarray) -> np.ndarray:
+    key = tuple(int(x) for x in code)
+    with _MEMO_LOCK:
+        got = _ORBIT_CACHE.get(key)
+        if got is not None:
+            _ORBIT_CACHE.move_to_end(key)
+            return got
+    got = automorphism_orbits(code)
+    with _MEMO_LOCK:
+        _ORBIT_CACHE[key] = got
+        while len(_ORBIT_CACHE) > _MEMO_CAP:
+            _ORBIT_CACHE.popitem(last=False)
+    return got
+
+
+def seed_memo(quick_codes: np.ndarray, canon: np.ndarray, sigma: np.ndarray,
+              canon_codes: Optional[np.ndarray] = None,
+              orbits: Optional[np.ndarray] = None) -> None:
+    """Warm the memo with externally computed (device) canonicalisations
+    (and, for FSM, the canonical codes' orbits) so later host passes over
+    the same patterns are cache hits."""
     rows64 = np.ascontiguousarray(quick_codes, dtype=np.int64)
     _memo_put_canon(
         (rows64[i].tobytes(), (canon[i], sigma[i])) for i in range(len(rows64))
     )
+    if canon_codes is not None and orbits is not None:
+        with _MEMO_LOCK:
+            for i in range(len(canon_codes)):
+                key = tuple(int(x) for x in canon_codes[i])
+                _ORBIT_CACHE[key] = np.asarray(orbits[i], dtype=np.int32)
+            while len(_ORBIT_CACHE) > _MEMO_CAP:
+                _ORBIT_CACHE.popitem(last=False)
+
+
+def pattern_to_networkx(code):
+    """A canonical (or quick) code as a labelled ``networkx.Graph``."""
+    import networkx as nx
+
+    nv, adj, labels = decode(np.asarray(code))
+    g = nx.Graph()
+    for i in range(nv):
+        g.add_node(i, label=int(labels[i]))
+    for i in range(nv):
+        for j in range(i + 1, nv):
+            if adj[i, j]:
+                g.add_edge(i, j)
+    return g

@@ -12,8 +12,12 @@ one blocking count read per chunk is kept bit for bit as
 Pattern aggregation is device-resident by default (DESIGN.md §10): chunk
 programs emit pre-binned level-1 *partials* that fold across the
 stacked-drain window (:class:`repro_torch.core.aggregation.DeviceLevel1`),
-and only O(Q) bytes cross to the host; ``device_aggregate=False`` keeps the
-host reference path (``aggregation.aggregate_rows``). Level 2 runs where
+or — when FSM needs the local-vertex table for its min-image domains — the
+waves are re-binned on the device at aggregation time. Either way only
+O(Q) bytes (distinct codes, counts, the canonical domain bitmaps, and an
+alpha row mask iff pruning fires) cross to the host;
+``device_aggregate=False`` keeps the host reference path
+(``aggregation.aggregate_rows``). Level 2 runs where
 ``canonical_placement`` puts it (DESIGN.md §15): on the host, on a
 background thread joined at the next seal (``host_async``), or on the
 device through the canonical-refine kernel (``device``).
@@ -51,10 +55,6 @@ class SerialBackend(ExecutionBackend):
 
     def _make_store(self) -> FrontierStore:
         config, app = self.config, self.app
-        if app.wants_domains:
-            raise NotImplementedError(
-                "min-image domains come with FSM; see ROADMAP.md"
-            )
         self._device = self.g.device
         self._use_pallas = bool(config.use_pallas)
         self._agg_kernel = bool(config.aggregate_kernel)
@@ -70,8 +70,8 @@ class SerialBackend(ExecutionBackend):
             and type(app).aggregation_filter is MiningApp.aggregation_filter
         )
         # level-2 placement (DESIGN.md §15): host_async needs a deferrable
-        # table (the loop joins it at the seal) — pruning apps run the
-        # synchronous host placement, bit-identical either way
+        # table (the loop joins it at the seal) — pruning and domain apps
+        # run the synchronous host placement, bit-identical either way
         self._canon_placement = config.resolve_canonical_placement()
         if self._canon_placement == "host_async" and not (
             self._device_agg and aggregation.async_level2_ok(app)
@@ -90,7 +90,11 @@ class SerialBackend(ExecutionBackend):
             config.async_chunks and app.wants_patterns and store.kind == "raw"
         )
         self.with_patterns = order_preserving and not self._device_agg
-        self.with_aggregates = order_preserving and self._device_agg
+        # FSM (wants_domains) re-bins at wave time instead: the domain
+        # scatter needs the per-row local-vertex table, which partials drop
+        self.with_aggregates = (
+            order_preserving and self._device_agg and not app.wants_domains
+        )
         self._expand_fn = self._make_expand_fn()
         self._signatures = set()
         self._lvl1 = None
@@ -148,8 +152,7 @@ class SerialBackend(ExecutionBackend):
         return codes, lv
 
     def aggregate(self, codes, lv, st):
-        # host-resident level 1 (reference path; ``lv`` feeds only the
-        # domain apps, which are not ported): placement "device" still
+        # host-resident level 1 (reference path): placement "device" still
         # routes the miss batch through the refine kernel
         canon_fn = (
             canonical_refine.make_canon_fn(
@@ -158,7 +161,9 @@ class SerialBackend(ExecutionBackend):
             if self._canon_placement == "device"
             else None
         )
-        agg, canon_slot = aggregation.aggregate_rows(codes, canon_fn=canon_fn)
+        agg, canon_slot = aggregation.aggregate_rows(
+            self.g.n, codes, lv, self.app.wants_domains, canon_fn=canon_fn
+        )
         obs.set_stat(st, "n_quick_patterns", agg.n_quick)
         obs.set_stat(st, "n_canonical_patterns", agg.n_canonical)
         obs.set_stat(st, "n_iso_checks", agg.n_iso_checks)
@@ -209,14 +214,24 @@ class SerialBackend(ExecutionBackend):
                 table, counts, nbytes2 = aggregation.device_level2(
                     u, c, uv, fcap, len(uniq), uniq, counts_q,
                     nvs=aggregation.level2_nvs(app, size),
+                    with_domains=app.wants_domains,
                     use_kernel=self._agg_kernel, method=self._agg_bin,
                 )
                 obs.count(st, "bytes_to_host", nbytes2)
             else:
-                table, counts = aggregation.finish_quick_level2(uniq, counts_q)
+                table, counts = aggregation.finish_quick_level2(
+                    uniq, counts_q, app.wants_domains
+                )
         obs.count(st, "t_canon", time.perf_counter() - t0)
+        if app.wants_domains and len(table.canon_codes):
+            bm = self._scatter_domains(lvl1, table, st)
+            supports = aggregation.min_image_support(
+                bm, table.canon_n_verts, table.canon_orbits
+            )
+        else:
+            supports = counts.copy()
         agg = aggregation.build_step_aggregates(
-            table, counts, counts.copy(), len(uniq), st
+            table, counts, supports, len(uniq), st
         )
         self._lvl1, self._table = lvl1, table
         self._agg_blocks, self._agg_size = blocks, size
@@ -233,7 +248,8 @@ class SerialBackend(ExecutionBackend):
     def _fold_waves(self, blocks, size) -> aggregation.DeviceLevel1:
         """Device re-bin of the materialised frontier: quick patterns per
         wave (on the upload the expansion reuses) folded into one
-        :class:`DeviceLevel1`."""
+        :class:`DeviceLevel1`; per-wave slot ids and local-vertex tables
+        stay on the device for the FSM domain scatter and alpha masks."""
         lvl1 = self._new_level1()
         wave_dev = (
             self._wave_dev
@@ -250,8 +266,34 @@ class SerialBackend(ExecutionBackend):
                 torch.full((len(w),), size, dtype=torch.int32,
                            device=self._device),
             )
-            lvl1.fold_rows(qp.codes)
+            lvl1.fold_rows(
+                qp.codes,
+                qp.local_verts if self.app.wants_domains else None,
+            )
         return lvl1
+
+    def _scatter_domains(self, lvl1, table, st) -> np.ndarray:
+        """FSM phase 2: scatter every batch's vertices into one flat
+        canonical domain bitmap on the device (``pc_cap * 8 * N + 1``
+        bools, allocated once a step, the last slot the dump); only the
+        (Pc, 8, N) result crosses, in one copy."""
+        pc = len(table.canon_codes)
+        pc_cap = next_pow2(max(pc, 1))
+        n = self.g.n
+        q2c, si = aggregation.level2_device_tables(
+            table, lvl1.final_cap, self._device
+        )
+        kmax = pattern_lib.MAX_PATTERN_VERTICES
+        flat = torch.zeros((pc_cap * kmax * n + 1,), dtype=torch.bool,
+                           device=self._device)
+        for i in range(len(lvl1.batches)):
+            flat = aggregation.scatter_canon_bitmaps(
+                flat, lvl1.batch_slots(i), lvl1.batches[i][1],
+                q2c, si, pc_cap, n,
+            )
+        bm = flat[: pc * kmax * n].reshape(pc, kmax, n).cpu().numpy()
+        obs.count(st, "bytes_to_host", bm.nbytes)
+        return bm
 
     def alpha_rows(self, pk, st):
         """Per-row alpha from the per-pattern verdict: gather the (padded)

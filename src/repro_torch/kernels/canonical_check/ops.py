@@ -4,13 +4,15 @@
 The JAX package's VMEM guards (``fits_vmem``, ``fits_vmem_fused``,
 ``_fused_block_c``) are TPU budgets: the Hopper kernels read the bitmap and
 the neighbour table from device memory, so every graph takes the kernel
-when the knob is on. Edge mode has no kernel (the reference routes it to
-the jnp ``edge_check`` too) and is not ported yet. The tile-indexed check
+when the knob is on. Edge mode has no kernel: ``mode="edge"`` routes to
+the plain ``canonical.edge_check``, as the reference routes it to its jnp
+check. The tile-indexed check
 of the partitioned layout has no ``VMEM_BITMAP_LIMIT`` guard either: with
 the knob on it launches whatever the halo tile's size.
 """
 from __future__ import annotations
 
+from repro_torch.core import canonical
 from repro_torch.core.graph import DeviceGraph
 from repro_torch.kernels.canonical_check.canonical_check import (
     canonical_check_cuda,
@@ -22,10 +24,10 @@ from repro_torch.kernels.canonical_check.canonical_check import (
 
 def canonical_check(g: DeviceGraph, members, n_valid, cand, *,
                     mode: str = "vertex"):
-    """Alg.-2 check through the kernel (vertex mode). Accepts any batch
-    size, including 0."""
+    """Alg.-2 check: the kernel in vertex mode, the plain edge check in
+    edge mode. Accepts any batch size, including 0."""
     if mode == "edge":
-        raise NotImplementedError("edge mode comes with FSM; see ROADMAP.md")
+        return canonical.edge_check(g, members, n_valid, cand)
     return canonical_check_cuda(members, n_valid, cand, g.adj_bits)
 
 

@@ -181,6 +181,15 @@ def refine_codes_ref(codes, valid, nvs: tuple, *, with_orbits: bool = False,
     for nv in sorted(set(int(v) for v in nvs)):
         if nv <= 1 or nv > MAX_NV:
             continue
+        if not on_cuda(codes):
+            # on the host, refine only the valid rows of this nv (a CUDA
+            # tensor takes the masked pass over every row: no host sync)
+            rows = (valid & (row_nv == nv)).nonzero()[:, 0]
+            c, s, r = _refine_nv_ref(codes[rows], nv, with_orbits, tile)
+            canon = canon.index_put((rows,), c)
+            sigma = sigma.index_put((rows,), s)
+            rep = rep.index_put((rows,), r)
+            continue
         c, s, r = _refine_nv_ref(codes, nv, with_orbits, tile)
         m = (valid & (row_nv == nv))[:, None]
         canon = torch.where(m, c, canon)

@@ -16,7 +16,7 @@ import torch
 
 from repro_torch.core import graph as TG
 from repro_torch.core import RunConfig, run
-from repro_torch.core.apps import CliquesApp, MotifsApp
+from repro_torch.core.apps import CliquesApp, FSMApp, MotifsApp
 from repro_torch.core import canon_math
 from repro_torch.kernels import aggregate, build, canonical_refine, compact
 from repro_torch.kernels import gather, radix_bin
@@ -511,6 +511,60 @@ def test_partitioned_card_run_equals_cpu_run(cuda_device, app):
         np.testing.assert_array_equal(gpu.embeddings[size], emb)
     for name in ("gather_rows", "canonical_check_tiles"):
         assert build.LAUNCHES[name] > before[name], name
+
+
+@pytest.mark.parametrize("knobs", [
+    dict(), dict(cost_model="force_device"), dict(device_aggregate=False),
+    dict(graph_partition=4), dict(async_chunks=False),
+], ids=["default", "force_device", "host_level1", "partitioned", "sync"])
+def test_fsm_card_run_equals_cpu_run(cuda_device, knobs):
+    """FSM (edge mode, min-image domains, support pruning) on the card
+    against the same run on the CPU: patterns with their supports, every
+    step's counters, the step aggregates; under ``force_device`` the
+    refine's orbit pass (two launches a level-2 pass)."""
+    g = TG.citeseer_like(0.1)
+    cfg = RunConfig(chunk_size=256, initial_capacity=64, **knobs)
+    app = FSMApp(support=2, max_size=3)
+    before = dict(build.LAUNCHES)
+    gpu = run(g, app, cfg, device=cuda_device)
+    torch.cuda.synchronize()
+    launches = {k: build.LAUNCHES[k] - before[k] for k in before}
+    cpu = run(g, app, cfg, device="cpu")
+    assert gpu.patterns == cpu.patterns and gpu.patterns
+    for a, b in zip(gpu.stats.steps, cpu.stats.steps):
+        assert (a.n_children, a.n_generated, a.n_canonical, a.n_host_syncs,
+                a.n_quick_patterns, a.n_canonical_patterns,
+                a.bytes_to_host) == (
+            b.n_children, b.n_generated, b.n_canonical, b.n_host_syncs,
+            b.n_quick_patterns, b.n_canonical_patterns, b.bytes_to_host)
+    for a, b in zip(gpu.aggregates, cpu.aggregates):
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(np.asarray(x), np.asarray(y))
+    assert launches["stream_compact"] > 0
+    if "cost_model" in knobs:
+        # the canonical refine and its orbit pass, once each a step
+        assert launches["canonical_refine"] == 2 * len(gpu.stats.steps)
+    if "graph_partition" in knobs:
+        assert launches["gather_rows"] > 0
+
+
+def test_edge_chunk_program_matches_cpu(cuda_device):
+    """One edge-mode chunk program on the card (whole graph and tile view)
+    against the CPU: children, codes, the local-vertex table, counters."""
+    g = TG.citeseer_like(0.3)
+    rows = min(777, g.m)
+    members = torch.arange(rows, dtype=torch.int32)[:, None]
+    n_valid = torch.ones(rows, dtype=torch.int32)
+    app = FSMApp(support=2, max_size=3)
+    for make in (lambda d: TG.to_device(g, d),
+                 lambda d: TG.to_partitioned(g, 4, device=d)):
+        outs = [explore.fused_chunk_step(
+            make(dev), members.to(dev), n_valid.to(dev), 1 << 14,
+            mode="edge", app=app, with_patterns=True, with_local_verts=True,
+            use_pallas=True, compact_kernel=True, aggregate_kernel=True)
+            for dev in (cuda_device, "cpu")]
+        for a, b in zip(*outs):
+            assert torch.equal(a.cpu(), b)
 
 
 # ---------------------------------------------------------------------------

@@ -10,13 +10,12 @@ import pytest
 import torch
 
 from repro.core import EngineConfig, graph as JG
-from repro.core import run as jrun
 from repro.core.apps import CliquesApp as JCliques, MotifsApp as JMotifs
 from repro.core.apps.cliques import maximal_cliques as jmaximal
-from repro_torch.core import RunConfig, explore as texplore, graph as TG, run
+from repro_torch.core import RunConfig, graph as TG, run
 from repro_torch.core.apps import CliquesApp, MotifsApp
 from repro_torch.core.apps.cliques import maximal_cliques
-from torch_parity import KERNELS_ON, assert_same_run, graph_pair
+from torch_parity import KERNELS_ON, assert_same_run, graph_pair, jax_run
 
 MOTIF_GRAPHS = [(3, 60, 150, 3), (5, 30, 60, 1), (11, 45, 100, 5)]
 
@@ -27,8 +26,8 @@ def test_motifs_match_reference(seed, n, m, labels):
         lambda G: G.random_labeled(n, m, n_labels=labels, seed=seed))
     base = dict(chunk_size=2048, initial_capacity=2048)
     size = 4 if seed == 3 else 3
-    jres = jrun(jg, JMotifs(max_size=size),
-                EngineConfig(cost_model="off", **base))
+    jres = jax_run(jg, JMotifs(max_size=size),
+                   EngineConfig(cost_model="off", **base))
     tres = run(tg, MotifsApp(max_size=size),
                RunConfig(fused_expand=seed == 3, **KERNELS_ON, **base),
                device="cpu")
@@ -40,7 +39,8 @@ def test_cliques_match_reference(seed):
     jg, tg = graph_pair(
         lambda G: G.random_labeled(50, 180, n_labels=1, seed=seed))
     base = dict(chunk_size=2048, initial_capacity=2048)
-    jres = jrun(jg, JCliques(max_size=4), EngineConfig(cost_model="off", **base))
+    jres = jax_run(jg, JCliques(max_size=4),
+                   EngineConfig(cost_model="off", **base))
     tres = run(tg, CliquesApp(max_size=4),
                RunConfig(fused_expand=seed == 7, **KERNELS_ON, **base),
                device="cpu")
@@ -57,7 +57,7 @@ def test_labeled_mico_motifs_cross_agg_qcap():
     agg_qcap (4096), so the carried partials overflow and the step re-folds
     from the frontier wave — in both packages, with the same counters."""
     jg, tg = graph_pair(lambda G: G.mico_like(0.005))
-    jres = jrun(jg, JMotifs(max_size=3), EngineConfig(cost_model="off"))
+    jres = jax_run(jg, JMotifs(max_size=3), EngineConfig(cost_model="off"))
     tres = run(tg, MotifsApp(max_size=3), RunConfig(**KERNELS_ON),
                device="cpu")
     assert_same_run(jres, tres)
@@ -99,12 +99,3 @@ def test_level2_placements_and_radix_bin_run(knob):
     res = run(g, MotifsApp(max_size=3), RunConfig(**knob), device="cpu")
     assert res.patterns == want
 
-
-def test_edge_mode_tile_view_is_not_ported():
-    g = TG.to_partitioned(TG.triangle_plus_tail(), 2, device="cpu")
-    members = torch.zeros((2, 1), dtype=torch.int32)
-    n_valid = torch.ones(2, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        texplore.build_tile_view(g, members, n_valid, mode="edge")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        texplore.halo_vertices(g, members, n_valid, "edge")

@@ -10,11 +10,11 @@ import pytest
 import torch
 
 from repro.core import EngineConfig, explore as jexplore, graph as JG
-from repro.core import run as jrun
 from repro.core.apps import CliquesApp as JCliques, MotifsApp as JMotifs
 from repro.core.runtime import programs as jprograms
 from repro_torch.core import explore as texplore, graph as TG
 from repro_torch.core.apps import CliquesApp, MotifsApp
+from torch_parity import jax_run
 
 KNOBS = [
     dict(use_pallas=False, fused=False, compact_kernel=False),
@@ -33,8 +33,8 @@ def setting():
     g = JG.random_labeled(45, 110, n_labels=3, seed=11)
     jdg = JG.to_device(g)
     tdg = TG.to_device(TG.Graph(n=g.n, labels=g.labels, edges=g.edges), "cpu")
-    res = jrun(g, JMotifs(max_size=3, collect_embeddings=True),
-               EngineConfig(cost_model="off"))
+    res = jax_run(g, JMotifs(max_size=3, collect_embeddings=True),
+                  EngineConfig(cost_model="off"))
     frontiers = {}
     for size, emb in res.embeddings.items():
         rows = np.asarray(emb, np.int32)[:96]
@@ -116,9 +116,3 @@ def test_fused_chunk_step_with_aggregates(setting, knobs, agg_qcap):
     if agg_qcap == 4:
         assert int(got[4]) > 4
 
-
-def test_edge_mode_is_not_ported(setting):
-    _, tdg, frontiers, _ = setting
-    m, n = (torch.from_numpy(np.array(a)) for a in frontiers[1])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        texplore.expand_and_compact(tdg, m, n, "edge", 64)

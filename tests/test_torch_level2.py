@@ -11,13 +11,12 @@ import numpy as np
 import pytest
 
 from repro.core import EngineConfig, pattern as jpattern
-from repro.core import run as jrun
 from repro.core.apps import CliquesApp as JCliques, MotifsApp as JMotifs
 from repro_torch.core import RunConfig, aggregation, pattern as tpattern, run
 from repro_torch.core.apps import CliquesApp, MotifsApp
 from repro_torch.core.runtime import SerialBackend
 from repro_torch.core import graph as TG
-from torch_parity import KERNELS_ON, assert_same_run, graph_pair
+from torch_parity import KERNELS_ON, assert_same_run, graph_pair, jax_run
 
 #: small chunks, capacities and ``agg_qcap``: every step spans several
 #: chunks, capacity retries and overflowing partials (re-folded waves)
@@ -34,7 +33,7 @@ def _pair(jg, tg, japp, tapp, **knobs):
     each after clearing both memos."""
     jpattern.clear_memo()
     tpattern.clear_memo()
-    jres = jrun(jg, japp, EngineConfig(**knobs))
+    jres = jax_run(jg, japp, EngineConfig(**knobs))
     for extra in (KERNELS_ON, {}):
         tpattern.clear_memo()
         tres = run(tg, tapp, RunConfig(**extra, **knobs), device="cpu")
@@ -106,15 +105,15 @@ def test_device_level2_seeds_the_memo():
     host-placed run over the same patterns is all cache hits."""
     _, tg = _graphs()
     tpattern.clear_memo()
-    assert tpattern.memo_sizes() == 0
+    assert tpattern.memo_sizes() == (0, 0)
     dev = run(tg, MotifsApp(max_size=3),
               RunConfig(canonical_placement="device", **KERNELS_ON),
               device="cpu")
     n_quick = sum(s.n_quick_patterns for s in dev.stats.steps)
-    assert 0 < tpattern.memo_sizes() <= n_quick
+    assert 0 < tpattern.memo_sizes()[0] <= n_quick
     host = run(tg, MotifsApp(max_size=3), RunConfig(), device="cpu")
     assert host.patterns == dev.patterns
-    assert tpattern.memo_sizes() <= n_quick
+    assert tpattern.memo_sizes()[0] <= n_quick
 
 
 @pytest.mark.parametrize("knob", [dict(canonical_placement="gpu"),

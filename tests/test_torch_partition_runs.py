@@ -8,11 +8,10 @@ retries and overflowing partials. The unit parity of the layout is in
 import pytest
 
 from repro.core import EngineConfig
-from repro.core import run as jrun
 from repro.core.apps import CliquesApp as JCliques, MotifsApp as JMotifs
 from repro_torch.core import RunConfig, run
 from repro_torch.core.apps import CliquesApp, MotifsApp
-from torch_parity import KERNELS_ON, assert_same_run, graph_pair
+from torch_parity import KERNELS_ON, assert_same_run, graph_pair, jax_run
 
 PIPELINE = dict(chunk_size=32, initial_capacity=16, agg_qcap=8)
 
@@ -40,7 +39,7 @@ def test_partitioned_runs_match_reference(app, knobs):
     else:
         japp, tapp = JCliques(max_size=4), CliquesApp(max_size=4)
     cfg = dict(graph_partition=4, cost_model="off", **knobs, **PIPELINE)
-    jres = jrun(jg, japp, EngineConfig(**cfg))
+    jres = jax_run(jg, japp, EngineConfig(**cfg))
     for extra in PORT_KNOBS:
         tres = run(tg, tapp, RunConfig(**cfg, **extra), device="cpu")
         assert_same_run(jres, tres)

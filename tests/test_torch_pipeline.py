@@ -10,7 +10,6 @@ import numpy as np
 import pytest
 
 from repro.core import EngineConfig, graph as JG
-from repro.core import run as jrun
 from repro.core.apps import CliquesApp as JCliques, MotifsApp as JMotifs
 from repro.core.runtime import RunConfig as JRunConfig
 from repro.core.runtime import SerialBackend as JSerial
@@ -21,7 +20,9 @@ from repro_torch.core.apps import CliquesApp, MotifsApp
 from repro_torch.core.runtime import SerialBackend
 from repro_torch.core.stats import StepStats
 from repro_torch.core.store import store_from_numpy
-from torch_parity import COUNTERS, KERNELS_ON, assert_same_run, graph_pair
+from torch_parity import (
+    COUNTERS, KERNELS_ON, assert_same_run, graph_pair, jax_run,
+)
 
 PIPELINE = dict(chunk_size=32, initial_capacity=16, agg_qcap=8)
 
@@ -50,7 +51,7 @@ def test_pipeline_modes_match_reference(app, async_chunks, device_aggregate):
     knobs = dict(async_chunks=async_chunks, device_aggregate=device_aggregate,
                  **PIPELINE)
     japp, tapp = _apps(app)
-    jres = jrun(jg, japp, EngineConfig(cost_model="off", **knobs))
+    jres = jax_run(jg, japp, EngineConfig(cost_model="off", **knobs))
     tres = run(tg, tapp, RunConfig(**KERNELS_ON, **knobs), device="cpu")
     assert_same_run(jres, tres)
 
@@ -61,7 +62,7 @@ def test_plain_routes_and_forced_tables_match_reference(mode):
     table against the same JAX cost-model mode."""
     jg, tg = _pipeline_graphs()
     japp, tapp = _apps("motifs")
-    jres = jrun(jg, japp, EngineConfig(cost_model=mode, **PIPELINE))
+    jres = jax_run(jg, japp, EngineConfig(cost_model=mode, **PIPELINE))
     for cfg in (RunConfig(cost_model=mode, **PIPELINE),
                 RunConfig(cost_model=mode, **KERNELS_ON, **PIPELINE)):
         assert_same_run(jres, run(tg, tapp, cfg, device="cpu"))
@@ -87,8 +88,8 @@ def test_pattern_alpha_prunes_like_reference(device_aggregate):
     device slot ids (``alpha_rows``) or the host canonical slots."""
     jg, tg = _pipeline_graphs()
     knobs = dict(device_aggregate=device_aggregate, **PIPELINE)
-    jres = jrun(jg, _prune_app(JMotifs), EngineConfig(cost_model="off",
-                                                      **knobs))
+    jres = jax_run(jg, _prune_app(JMotifs),
+                   EngineConfig(cost_model="off", **knobs))
     tres = run(tg, _prune_app(MotifsApp), RunConfig(**KERNELS_ON, **knobs),
                device="cpu")
     assert_same_run(jres, tres)
@@ -104,8 +105,8 @@ def test_serial_backend_expands_one_frontier_identically():
     level-1 totals."""
     jg, tg = _pipeline_graphs()
     japp, tapp = _apps("motifs")
-    jres = jrun(jg, JMotifs(max_size=2, collect_embeddings=True),
-                EngineConfig(cost_model="off"))
+    jres = jax_run(jg, JMotifs(max_size=2, collect_embeddings=True),
+                   EngineConfig(cost_model="off"))
     state = {"kind": "raw", "meta": {"size": 2},
              "arrays": {"frontier": np.asarray(jres.embeddings[2])}}
 

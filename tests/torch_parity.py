@@ -1,17 +1,24 @@
 """Shared helpers of the port's parity tests (``test_torch_*.py``): one
-seeded graph for both packages, the whole-run comparison and the
-array-tuple comparison (tolerance 0).
+seeded graph for both packages, the JAX package's whole run, the
+whole-run comparison and the array-tuple comparison (tolerance 0).
 
 Importing it pins PyTorch to one intra-op thread for the test process: the
 suite runs several worker processes at once, and PyTorch's default (one
 thread per core in every worker) oversubscribes the CPU against the JAX
 tests that run beside it."""
+import contextlib
 import dataclasses
+from unittest import mock
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import torch
 
 from repro.core import graph as JG
+from repro.core import run as jrun
+from repro.core.runtime import programs as jprograms
+from repro.core.runtime import serial as jserial
 from repro.core.stats import StepStats as JStepStats
 from repro_torch.core import graph as TG
 
@@ -23,6 +30,97 @@ COUNTERS = [f.name for f in dataclasses.fields(JStepStats)
 KERNELS_ON = dict(use_pallas=True, compact_kernel=True, aggregate_kernel=True)
 
 torch.set_num_threads(1)
+
+#: ``cost_model`` modes under which the JAX package's run times nothing of
+#: its own (``auto`` calibrates on timings of the functions swapped below)
+UNTIMED_COST_MODELS = ("off", "force_device", "force_host")
+
+
+def _jdevice_chunk_impl(wave_dev, lo, cb, bucket, k):
+    chunk = jax.lax.dynamic_slice_in_dim(wave_dev, lo, cb)
+    n_valid = jnp.full((cb,), k, jnp.int32)
+    if bucket > cb:
+        chunk = jnp.concatenate([chunk, jnp.full((bucket - cb, k), -1,
+                                                 jnp.int32)])
+        n_valid = jnp.concatenate([n_valid,
+                                   jnp.zeros((bucket - cb,), jnp.int32)])
+    return chunk, n_valid
+
+
+class HostPrefix:
+    """One output buffer of a chunk program whose prefix slices are taken
+    on the host, after one copy of the whole buffer (the reference reads
+    only ``buf[:count]`` of it, and ``delete`` to retire it)."""
+
+    def __init__(self, buf):
+        self.buf = buf
+
+    def __getitem__(self, index):
+        return np.asarray(self.buf)[index]
+
+    def delete(self):
+        self.buf.delete()
+
+
+def _host_prefix_rec(rec):
+    def wrapped(self, out, used_cap):
+        p = rec(self, out, used_cap)
+        for key in ("children", "codes", "lv"):
+            if p.get(key) is not None:
+                p[key] = HostPrefix(p[key])
+        return p
+    return wrapped
+
+
+#: The JAX package's runs call some operations outside any jitted program,
+#: and each new shape or static index compiles such an operation on its own
+#: (~0.06 s a compile on a CPU, hundreds a run). ``jax_run`` swaps three of
+#: them for versions that compute the same integers
+#: (``test_torch_edge.py::test_jax_run_swaps_match_eager`` holds each to
+#: its eager form):
+#: - ``programs.quick_patterns``, the wave quick codes, as one program;
+#: - ``programs.device_chunk``, the chunk slice, as one program a chunk
+#:   shape, its start an argument;
+#: - the prefix slices ``buf[:count]`` of the chunk programs' outputs
+#:   (children, quick codes, local vertices), taken on the host.
+SWAPS = {
+    "quick_patterns": jax.jit(jprograms.quick_patterns, static_argnums=1),
+    "device_chunk": jax.jit(_jdevice_chunk_impl, static_argnums=(2, 3, 4)),
+    "rec": _host_prefix_rec(jserial.SerialBackend._rec),
+}
+
+
+@contextlib.contextmanager
+def quick_compiles():
+    """XLA at its lowest optimization level inside the block. The JAX
+    package's runs at test sizes compile a hundred small programs each,
+    and compiling them costs more than running them. The level changes how
+    a program is compiled, never the integers it computes; were it to, the
+    reference would disagree with the port, not hide a fault of it. A
+    program compiled here stays in the process's cache, as any other
+    does."""
+    flag = "jax_disable_most_optimizations"
+    old = jax.config.read(flag)
+    jax.config.update(flag, True)
+    try:
+        yield
+    finally:
+        jax.config.update(flag, old)
+
+
+def jax_run(g, app, config):
+    """The JAX package's ``run(g, app, config)`` with the swaps above (same
+    results), compiled under ``quick_compiles``. Refuses a cost model that
+    would time the swapped functions."""
+    if config.cost_model not in UNTIMED_COST_MODELS:
+        raise ValueError(f"jax_run takes cost_model in {UNTIMED_COST_MODELS},"
+                         f" not {config.cost_model!r}")
+    with quick_compiles(), mock.patch.object(jprograms, "quick_patterns",
+                           SWAPS["quick_patterns"]), \
+            mock.patch.object(jprograms, "device_chunk",
+                              SWAPS["device_chunk"]), \
+            mock.patch.object(jserial.SerialBackend, "_rec", SWAPS["rec"]):
+        return jrun(g, app, config)
 
 
 def graph_pair(make):
