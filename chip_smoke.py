@@ -80,9 +80,8 @@ Phases, in order; any failure exits non-zero and prints no result:
         per-step counters identical); one FSM chunk program per layout
         under sync debug mode "error";
      b. the main path at the paper's FSM graph, ``citeseer_like(1.0)``,
-        ``FSMApp(support=25, max_size=3)`` (the depth cut from 4: the
-        4-edge wave of ~2.6e8 embeddings runs the card out of memory in
-        its quick patterns, ``--fsm-full-depth``), and at the
+        ``FSMApp(support=25, max_size=3)`` (three configs at 3 edges; 8c
+        mines its 4 edges, 60-90 s a run), and at the
         example's scale, ``citeseer_like(0.3)``, ``FSMApp(support=8,
         max_size=4)``, each under the default config and ``force_device``
         (device level 2 with its orbit pass, the radix bin), the first also
@@ -101,7 +100,30 @@ Phases, in order; any failure exits non-zero and prints no result:
      pass; the single-edge supports against a count from the edge list;
      then the refine with orbits on the canonical table of step 4, exact
      against its plain version and against ``automorphism_orbits``, timed
-     beside the plain version.
+     beside the plain version;
+  8. the frontier stores (the ODAG store, paper §5.2-5.3, and the spill
+     store's device-budget waves):
+     a. the card port against the CPU port (patterns, embedding counts,
+        every per-step counter with ``odag_bytes``, and the waves per
+        step) on ``mico_like(0.005)``: size-3 motifs and size-4 cliques
+        under ``store="odag"``, size-3 motifs under a budget of an eighth
+        of their peak frontier bytes for the raw and the ODAG store (more
+        than one wave a step); size-4 motifs under ``store="odag"`` on
+        ``mico_like(0.001)``; FSM on ``citeseer_like(0.1)``, support 2, 3
+        edges, under ``store="odag"`` and under a budget as well;
+     b. the main path under ``store="odag"`` on ``mico_like(0.1)``:
+        size-3 motifs and size-4 cliques, each equal to phase 5's
+        raw-store run (patterns, embeddings as sets, frontier rows per
+        step), kernels counted; per step the raw and the ODAG bytes (Fig.
+        9's ratio) and ``t_storage``; per extraction its seconds, levels,
+        chunks, candidate pairs, host syncs (one a level and chunk, one
+        for the copy) and the ``canonical_check`` and ``stream_compact``
+        launches within it (``canonical_check`` must launch);
+     c. the paper's FSM graph at its depth, ``citeseer_like(1.0)``,
+        support 25, 4 edges (~2.6e8 embeddings at step 4), under
+        ``device_budget_bytes=2**30`` and then in one wave: the waves per
+        step, the walls, the peaks; a frequent pattern of 4 edges, the
+        same patterns in both runs and, up to 3 edges, 7b's patterns.
 
 Times are amortised (``time_call``): after a warm-up, one CUDA event pair
 around N back-to-back calls (N >= 20, or enough for 2 ms; one call for the
@@ -128,9 +150,10 @@ in a process of its own.
 
     python3 chip_smoke.py --fsm-full-depth
 
-runs only phase 7b's graph to the 4 edges that 7b cuts it from, and prints
-its record, or logs the peak device bytes and fails with the allocation
-that ran the card out of memory.
+runs only phase 8c (the depth 7b stops short of), under the budget and in
+one wave, and prints their record where both pass and agree; where a run
+runs the card out of memory, it logs the failed allocation, where it was
+made and the peak, and exits non-zero.
 """
 from __future__ import annotations
 
@@ -143,6 +166,7 @@ import statistics
 import subprocess
 import sys
 import time
+import traceback
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -170,10 +194,10 @@ PARTS = 4                      # graph shards of the partitioned runs
 #: phase 7 (FSM): the card-vs-CPU graph; the paper's FSM graph at full
 #: scale (citeseer_like(1.0): 3,312 vertices, 4,732 edges, 6 labels, paper
 #: Table 1) with the example's support of 8 at scale 0.3 scaled to the
-#: whole graph, its depth cut to 3 edges (its 4-edge frontier, ~2.6e8
-#: embeddings, does not fit one wave on one card), and at the example's
-#: own scale, support and depth (citeseer_like(0.3), 8, 4 edges); the
-#: domain stress on mico_like(0.1) at size 2
+#: whole graph, to 3 edges under three configs (phase 8c mines its 4
+#: edges, ~2.6e8 embeddings, in waves and in one wave), and at the
+#: example's own scale, support and depth (citeseer_like(0.3), 8, 4
+#: edges); the domain stress on mico_like(0.1) at size 2
 FSM_SMALL = 0.1                # citeseer_like scale of 7a
 FSM_SMALL_APP = dict(support=2, max_size=3)
 FSM_SMALL4_APP = dict(support=2, max_size=4)   # 7a's nv-5 orbit pass
@@ -181,6 +205,12 @@ FSM_MAIN_APP = dict(support=25, max_size=3)
 FSM_DEEP = 0.3                 # citeseer_like scale of the 4-edge runs
 FSM_DEEP_APP = dict(support=8, max_size=4)
 FSM_STRESS_APP = dict(support=100, max_size=2)
+#: phase 8 (stores): the card-vs-CPU graphs (size-4 motifs on the smaller
+#: one: mico_like(0.005) holds 17.3e6 of them, minutes a run on the CPU)
+#: and the device budget of the paper's FSM graph at its depth
+STORE_SMALL = 0.005
+STORE_TINY = 0.001
+FSM_DEPTH_BUDGET = 1 << 30     # ~6.7e7 size-4 rows a wave
 MODEL = "qwen2.5-14b"          # phase 6's model, full widths and depth
 FWD_B, FWD_S = 4, 2048         # the timed forward: 4 prompts x 2,048 tokens
 SERVE_B, SERVE_P, SERVE_G = 4, 16, 32   # launch/serve.py's defaults
@@ -1101,7 +1131,7 @@ def chunk_program_times(torch, dg, pg, members, n_valid, calls=3):
 INT_FIELDS = ("step", "size", "n_frontier", "n_generated", "n_canonical",
               "n_children", "n_quick_patterns", "n_canonical_patterns",
               "n_iso_checks", "n_chunks", "n_host_syncs", "frontier_bytes",
-              "bytes_to_host")
+              "odag_bytes", "bytes_to_host")
 
 
 def step_counters(res):
@@ -1191,7 +1221,8 @@ def counted_run(torch, run, build, totals, label, g, app, cfg, clock=None,
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
-    with Level2Tables(aggregation) as spy, clock or contextlib.nullcontext():
+    with Level2Tables(aggregation) as spy, WaveLog() as waves, \
+            clock or contextlib.nullcontext():
         build.reset_launches()
         t0 = time.perf_counter()
         res = run(g, app, cfg)
@@ -1202,12 +1233,13 @@ def counted_run(torch, run, build, totals, label, g, app, cfg, clock=None,
         totals[name] += v
     peak = torch.cuda.max_memory_allocated()
     steps = []
-    for s in res.stats.steps:
-        bound = 1 + math.ceil(s.n_chunks / _DRAIN_WINDOW)
+    for s, n_waves in zip(res.stats.steps, waves.per_step("cuda")):
+        # each wave of a spilled step pilots and drains on its own
+        bound = 2 * n_waves - 1 + math.ceil(s.n_chunks / _DRAIN_WINDOW)
         need(s.n_host_syncs <= (bound if s.n_chunks else 0),
              f"{label} step {s.step}: {s.n_host_syncs} host syncs for "
-             f"{s.n_chunks} chunks")
-        step = {"step": s.step}
+             f"{s.n_chunks} chunks in {n_waves} waves")
+        step = {"step": s.step, "waves": n_waves}
         step.update({k: getattr(s, f) for k, f in STEP_FIELDS.items()})
         step.update(more(s) if more else {})
         steps.append(step)
@@ -1303,7 +1335,7 @@ def main_path(torch, np, run, RunConfig, G, build, apps):
     log(f"  checks: {g.m} edges, {n_tri} triangles, {by_size.get(3)} size-3 "
         f"motifs = wedges - 2 triangles; cliques per size "
         f"{ {k: len(v) for k, v in cli.embeddings.items()} }")
-    return totals, runs, level2_table
+    return totals, runs, level2_table, {"motifs": mot, "cliques": cli}
 
 
 # ---------------------------------------------------------------------------
@@ -1598,27 +1630,257 @@ def fsm_phase(torch, np, run, RunConfig, G, build):
     build.reset_launches()
     torch.cuda.empty_cache()
     return totals, {"card_vs_cpu": small, "runs": runs,
-                    "refine_orbits_step4": refine}
+                    "refine_orbits_step4": refine}, \
+        results["fsm_citeseer"].patterns
 
 
 def fsm_full_depth(torch) -> dict:
-    """``--fsm-full-depth``: 7b's main run at the depth it is cut from."""
+    """``--fsm-full-depth``: phase 8c alone, the paper's FSM graph at the
+    depth 7b is cut from, under the device budget and in one wave."""
     from repro_torch.core import RunConfig, graph as G, run
-    from repro_torch.core.apps import FSMApp
     from repro_torch.kernels import build
 
     log(f"card: {nvidia_smi_line()}")
-    app = FSMApp(**dict(FSM_MAIN_APP, max_size=4))
     totals = {name: 0 for name in build.LAUNCHES}
-    try:
-        rec, _, _ = counted_run(torch, run, build, totals,
-                                "fsm_citeseer_4edges", G.citeseer_like(1.0),
-                                app, RunConfig())
-    except torch.OutOfMemoryError:
-        log(f"out of device memory; peak allocated "
-            f"{torch.cuda.max_memory_allocated()} bytes")
-        raise
-    return rec
+    return fsm_depth_runs(torch, run, RunConfig, G, build, totals)
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: the frontier stores (ODAG, spill)
+# ---------------------------------------------------------------------------
+
+class WaveLog:
+    """Records the waves the serial backend re-materialises at each step
+    (``begin_step``), by the device the run's graph is on."""
+
+    def __init__(self):
+        from repro_torch.core.runtime.serial import SerialBackend
+        self.cls = SerialBackend
+        self.orig = SerialBackend.begin_step
+        self.calls = []
+
+    def __enter__(self):
+        def spy(backend, store, st):
+            waves = self.orig(backend, store, st)
+            self.calls.append((backend.g.device.type, st.step, len(waves)))
+            return waves
+
+        self.cls.begin_step = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.begin_step = self.orig
+
+    def per_step(self, device: str) -> list:
+        return [n for d, _, n in self.calls if d == device]
+
+
+class ExtractLog:
+    """Records each ODAG extraction (``repro_torch.core.odag.extract``, the
+    store's whole and per-partition walks): its seconds (the card
+    synchronised before it; it ends in its copy to the host), its
+    counters, and the launches of ``canonical_check`` and
+    ``stream_compact`` within it alone."""
+
+    def __init__(self, torch, build):
+        from repro_torch.core import odag
+        self.torch, self.build, self.mod = torch, build, odag
+        self.orig = odag.extract
+        self.calls = []
+
+    def __enter__(self):
+        torch, launches = self.torch, self.build.LAUNCHES
+
+        def spy(g, o, *a, **kw):
+            stats = {}
+            kw["stats"] = stats
+            before = dict(launches)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rows = self.orig(g, o, *a, **kw)
+            stats["seconds"] = time.perf_counter() - t0
+            stats["rows"] = len(rows)
+            for name in ("canonical_check", "stream_compact"):
+                stats[name] = launches[name] - before[name]
+            self.calls.append(stats)
+            return rows
+
+        self.mod.extract = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.extract = self.orig
+
+    def total(self, key):
+        return sum(c[key] for c in self.calls)
+
+
+def store_card_vs_cpu(torch, run, RunConfig, G):
+    """Phase 8a: the ODAG and spill stores, the card port against the CPU
+    port (patterns, embedding counts, every per-step counter with
+    ``odag_bytes``), each run's waves per step identical too, and more
+    than one wave in some step under a budget."""
+    from repro_torch.core.apps import CliquesApp, FSMApp, MotifsApp
+
+    def peak(make, scale, app):
+        res = run(make(scale), app, RunConfig(), device="cpu")
+        return max(s.frontier_bytes for s in res.stats.steps)
+
+    motifs, fsm = MotifsApp(max_size=3), FSMApp(**FSM_SMALL_APP)
+    budget = peak(G.mico_like, STORE_SMALL, motifs) // 8
+    fsm_budget = peak(G.citeseer_like, FSM_SMALL, fsm) // 8
+    log(f"[8a] stores: card port vs CPU port on mico_like({STORE_SMALL}) "
+        f"(motifs budget {budget} B, an eighth of the peak frontier), "
+        f"mico_like({STORE_TINY}) and citeseer_like({FSM_SMALL}) (FSM "
+        f"budget {fsm_budget} B)")
+    cases = [
+        ("motifs4_odag", G.mico_like, STORE_TINY, MotifsApp(max_size=4),
+         RunConfig(store="odag")),
+        ("motifs_odag", G.mico_like, STORE_SMALL, motifs,
+         RunConfig(store="odag")),
+        ("cliques_odag", G.mico_like, STORE_SMALL, CliquesApp(max_size=4),
+         RunConfig(store="odag")),
+        ("motifs_spill_raw", G.mico_like, STORE_SMALL, motifs,
+         RunConfig(device_budget_bytes=budget)),
+        ("motifs_spill_odag", G.mico_like, STORE_SMALL, motifs,
+         RunConfig(store="odag", device_budget_bytes=budget)),
+        ("fsm_odag", G.citeseer_like, FSM_SMALL, fsm,
+         RunConfig(store="odag")),
+        ("fsm_spill_odag", G.citeseer_like, FSM_SMALL, fsm,
+         RunConfig(store="odag", device_budget_bytes=fsm_budget)),
+    ]
+    out = {}
+    for name, make, scale, app, cfg in cases:
+        with WaveLog() as waves:
+            out.update(card_vs_cpu(torch, run, make,
+                                   [(name, scale, app, cfg)]))
+        gpu, cpu = waves.per_step("cuda"), waves.per_step("cpu")
+        need(gpu == cpu, f"{name}: waves per step differ: {cpu} vs {gpu}")
+        out[name]["waves"] = gpu
+        if cfg.device_budget_bytes is not None:
+            need(max(gpu) > 1, f"{name}: one wave a step under the budget")
+        odag = [s["odag_bytes"] for s in out[name]["steps"]]
+        if cfg.store == "odag":
+            need(max(odag) > 0, f"{name}: no ODAG bytes recorded")
+        log(f"    waves per step {gpu}; frontier bytes "
+            f"{[s['frontier_bytes'] for s in out[name]['steps']]}, ODAG "
+            f"bytes {odag}")
+    return out
+
+
+def store_main_path(torch, np, run, RunConfig, G, build, raw):
+    """Phase 8b: motifs and cliques on mico_like(0.1) under the ODAG store,
+    kernels counted, each equal to phase 5's raw-store run; per step the
+    raw and ODAG bytes (Fig. 9's ratio) and the storage seconds, per
+    extraction its seconds, pairs, host syncs and kernel launches."""
+    from repro_torch.core.apps import CliquesApp, MotifsApp
+
+    log("[8b] main path under store='odag' on mico_like(0.1)")
+    g = G.mico_like(0.1)
+    totals = {name: 0 for name in build.LAUNCHES}
+    runs = []
+
+    def fig9(s):
+        return {"frontier_bytes": s.frontier_bytes,
+                "odag_bytes": s.odag_bytes,
+                "compression": (s.frontier_bytes / s.odag_bytes
+                                if s.odag_bytes else None)}
+
+    for label, app, base in (
+        ("motifs_odag", MotifsApp(max_size=3), raw["motifs"]),
+        ("cliques_odag", CliquesApp(max_size=4), raw["cliques"]),
+    ):
+        with ExtractLog(torch, build) as ex:
+            rec, res, _ = counted_run(torch, run, build, totals, label, g,
+                                      app, RunConfig(store="odag"),
+                                      more=fig9)
+        need(res.patterns == base.patterns,
+             f"{label}: patterns differ from phase 5's raw-store run")
+        need(sorted(res.embeddings) == sorted(base.embeddings),
+             f"{label}: embedding sizes differ from the raw-store run")
+        for size, emb in base.embeddings.items():
+            got = res.embeddings[size]
+            need(got.shape == emb.shape and np.array_equal(
+                np.unique(got, axis=0), np.unique(emb, axis=0)),
+                f"{label}: size-{size} embeddings differ as sets")
+        need([s.n_frontier for s in res.stats.steps]
+             == [s.n_frontier for s in base.stats.steps],
+             f"{label}: frontier rows per step differ from the raw store")
+        need(ex.calls and ex.total("canonical_check") > 0,
+             f"{label}: canonical_check never launched in extraction")
+        need(all(c["host_syncs"] == c["chunks"] + 1 for c in ex.calls),
+             f"{label}: an extraction took more than one host sync a level "
+             f"and chunk: {ex.calls}")
+        rec["extract"] = ex.calls
+        runs.append(rec)
+        for c in ex.calls:
+            log(f"    extraction: {c['rows']} rows in {c['seconds']:.3f} s, "
+                f"{c['levels']} levels, {c['chunks']} chunks, {c['pairs']} "
+                f"pairs, {c['kept']} kept, {c['host_syncs']} host syncs, "
+                f"canonical_check {c['canonical_check']} and stream_compact "
+                f"{c['stream_compact']} launches")
+    return totals, runs
+
+
+def fsm_depth_runs(torch, run, RunConfig, G, build, totals, fewer_edges=None):
+    """Phase 8c (and ``--fsm-full-depth``): the paper's FSM graph at its
+    depth, ``citeseer_like(1.0)``, support 25, to 4 edges, under
+    ``device_budget_bytes = FSM_DEPTH_BUDGET`` (waves per step logged),
+    then without a budget, in one wave a step: a frequent pattern of 4
+    edges, every support at or above 25, the same patterns in both runs
+    and, given ``fewer_edges`` (7b's patterns to 3 edges), the same
+    patterns of up to 3 edges. A run that runs the card out of memory is
+    logged with the failed allocation, where it was made and the peak,
+    and fails the phase."""
+    from repro_torch.core.apps import FSMApp
+
+    app = FSMApp(**dict(FSM_MAIN_APP, max_size=4))
+    g = G.citeseer_like(1.0)
+    cases = [("fsm_citeseer_4edges_budget",
+              RunConfig(device_budget_bytes=FSM_DEPTH_BUDGET)),
+             ("fsm_citeseer_4edges", RunConfig())]
+    out, results = {}, {}
+    for label, cfg in cases:
+        oom = None
+        try:
+            out[label], results[label], _ = counted_run(
+                torch, run, build, totals, label, g, app, cfg)
+        except torch.OutOfMemoryError as e:
+            # the port's innermost frames: where the failed allocation was
+            frames = [f"{Path(f.filename).name}:{f.lineno} {f.name}"
+                      for f in traceback.extract_tb(e.__traceback__)
+                      if "repro_torch" in f.filename][-3:]
+            oom = {"error": str(e).split(". GPU")[0], "at": frames}
+        if oom is not None:
+            oom["peak_bytes"] = torch.cuda.max_memory_allocated()
+            log(f"  {label}: out of device memory (peak allocated "
+                f"{oom['peak_bytes']} bytes): {oom['error']}, at "
+                f"{' <- '.join(reversed(oom['at']))}")
+            out[label] = {"oom": oom}
+            torch.cuda.empty_cache()
+    need(len(results) == 2, f"FSM to 4 edges ran out of device memory: "
+         f"{ {k: r['oom'] for k, r in out.items() if 'oom' in r} }")
+    base = results["fsm_citeseer_4edges_budget"]
+    by_edges = {}
+    for code in base.patterns:
+        e = bin(code[0] >> 4).count("1")
+        by_edges[e] = by_edges.get(e, 0) + 1
+    need(by_edges.get(4, 0) > 0, f"FSM to 4 edges: no frequent pattern of "
+         f"4 edges: {by_edges}")
+    need(all(v >= app.support for v in base.patterns.values()),
+         "FSM to 4 edges: a recorded pattern is below the support")
+    if fewer_edges is not None:
+        need({c: v for c, v in base.patterns.items()
+              if bin(c[0] >> 4).count("1") <= 3} == fewer_edges,
+             "FSM to 4 edges: its patterns of up to 3 edges differ from "
+             "7b's run to 3 edges")
+    log(f"  FSM to 4 edges under the budget: frequent by edges {by_edges}"
+        + ("; up to 3 edges equal to 7b's" if fewer_edges is not None
+           else ""))
+    need(results["fsm_citeseer_4edges"].patterns == base.patterns,
+         "FSM to 4 edges: the budgeted and the one-wave runs differ")
+    log("  the one-wave run: identical patterns")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2319,11 +2581,12 @@ def main(argv=None) -> int:
     parser.add_argument("--kernel-times", type=Path, default=None,
                         help=argparse.SUPPRESS)   # one turn of --kernel-ab
     parser.add_argument("--fsm-full-depth", action="store_true",
-                        help="only run phase 7b's graph to the 4 edges it "
-                        "is cut from (citeseer_like(1.0), support 25, "
-                        "default config) and print its record; where the "
-                        "card runs out of memory, log the peak and exit "
-                        "with the failed allocation")
+                        help="only run phase 8c: 7b's graph to 4 edges "
+                        "(citeseer_like(1.0), support 25) under a device "
+                        "budget and then in one wave, and print their "
+                        "record; where the card runs out of memory, log "
+                        "the failed allocation and the peak and exit "
+                        "non-zero")
     args = parser.parse_args(argv)
     if not (SRC / "repro_torch").is_dir():
         raise SmokeFailure(f"no src/repro_torch beside {Path(__file__).name}")
@@ -2404,7 +2667,8 @@ def main(argv=None) -> int:
 
     # ---- 5. the main path --------------------------------------------------
     log("[5] main path on mico_like(0.1) through repro_torch.core.run")
-    totals, runs, level2_table = main_path(torch, np, run, RunConfig, G, build, [
+    totals, runs, level2_table, raw_runs = main_path(
+        torch, np, run, RunConfig, G, build, [
         ("motifs_unfused", MotifsApp(max_size=3), RunConfig()),
         ("motifs_fused", MotifsApp(max_size=3), RunConfig(fused_expand=True)),
         ("cliques", CliquesApp(max_size=4), RunConfig()),
@@ -2444,8 +2708,23 @@ def main(argv=None) -> int:
         totals[name] += v
 
     # ---- 7. frequent subgraph mining ---------------------------------------
-    fsm_totals, extra["fsm"] = fsm_phase(torch, np, run, RunConfig, G, build)
+    fsm_totals, extra["fsm"], fsm_3edges = fsm_phase(torch, np, run,
+                                                     RunConfig, G, build)
     for name, v in fsm_totals.items():
+        totals[name] += v
+
+    # ---- 8. the frontier stores ----------------------------------------------
+    extra["stores_card_vs_cpu"] = store_card_vs_cpu(torch, run, RunConfig, G)
+    store_totals, extra["stores_main_path"] = store_main_path(
+        torch, np, run, RunConfig, G, build, raw_runs)
+    del raw_runs
+    log(f"[8c] the paper's FSM graph at its depth: citeseer_like(1.0), "
+        f"{dict(FSM_MAIN_APP, max_size=4)}, budget {FSM_DEPTH_BUDGET} B, "
+        "then one wave")
+    extra["fsm_depth"] = fsm_depth_runs(torch, run, RunConfig, G, build,
+                                        store_totals, fewer_edges=fsm_3edges)
+    del fsm_3edges
+    for name, v in store_totals.items():
         totals[name] += v
     for row in kernels:
         row["launches"] = totals[row["name"]]

@@ -630,6 +630,11 @@ def level2_device_tables(table: pattern_lib.PatternTable, cap: int, device):
             torch.from_numpy(si).to(device))
 
 
+#: rows of one slice of :func:`scatter_canon_bitmaps`: its temporaries,
+#: about 250 bytes a row, stay near 1 GiB however large the batch.
+SCATTER_SLICE_ROWS = 1 << 22
+
+
 def scatter_canon_bitmaps(bm_flat, slot, lv, q2c, sigma_inv,
                           pc_cap: int, n_vertices: int):
     """Phase-2 FSM domain scatter (device): accumulate one batch of rows,
@@ -639,13 +644,19 @@ def scatter_canon_bitmaps(bm_flat, slot, lv, q2c, sigma_inv,
     ``slot`` is the per-row quick slot (final table order), ``q2c`` /
     ``sigma_inv`` the uploaded level-2 tables; vertex ``lv[r,
     sigma_inv[p]]`` lands at canonical position ``p`` — the same
-    re-ordering :func:`map_to_canonical_positions` applies on the host."""
+    re-ordering :func:`map_to_canonical_positions` applies on the host.
+    Rows scatter in slices of :data:`SCATTER_SLICE_ROWS` (setting bits is
+    order-free, so the result is the one scatter's)."""
     want = pc_cap * pattern_lib.MAX_PATTERN_VERTICES * n_vertices + 1
     if bm_flat.shape[0] != want:
         raise ValueError(f"bm_flat: expected ({want},), got "
                          f"{tuple(bm_flat.shape)}")
-    safe = slot.clamp(min=0).to(torch.int64)
-    cs = torch.where(slot >= 0, q2c[safe], -1)                     # (B,)
-    vc = torch.gather(lv, 1, sigma_inv[safe].to(torch.int64))      # (B, 8)
-    ok = (vc >= 0) & (cs[:, None] >= 0)
-    return _scatter_flat(bm_flat, cs, vc, ok, n_vertices)
+    for lo in range(0, slot.shape[0], SCATTER_SLICE_ROWS):
+        part = slot[lo: lo + SCATTER_SLICE_ROWS]
+        safe = part.clamp(min=0).to(torch.int64)
+        cs = torch.where(part >= 0, q2c[safe], -1)                 # (b,)
+        vc = torch.gather(lv[lo: lo + SCATTER_SLICE_ROWS], 1,
+                          sigma_inv[safe].to(torch.int64))         # (b, 8)
+        ok = (vc >= 0) & (cs[:, None] >= 0)
+        bm_flat = _scatter_flat(bm_flat, cs, vc, ok, n_vertices)
+    return bm_flat

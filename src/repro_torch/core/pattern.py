@@ -73,8 +73,23 @@ def quick_pattern_vertex(
     return QuickPatterns(codes=codes, local_verts=lv, n_verts=n_valid)
 
 
+#: device bytes the temporaries of one row slice of
+#: :func:`quick_pattern_edge` may take (about 1 GiB).
+QUICK_EDGE_SLICE_BYTES = 1 << 30
+
+
+def quick_edge_slice_rows(k: int) -> int:
+    """Rows of one :func:`quick_pattern_edge` slice at ``k`` member edges:
+    its temporaries, about two (B, 2k, 2k) byte tensors and forty bytes a
+    slot of (B, 2k) ones, stay under :data:`QUICK_EDGE_SLICE_BYTES`
+    (2,396,745 rows at k = 4)."""
+    k2 = 2 * k
+    return max(1, QUICK_EDGE_SLICE_BYTES // (2 * k2 * k2 + 40 * k2))
+
+
 def quick_pattern_edge(
-    g: DeviceGraph, members: torch.Tensor, n_valid: torch.Tensor
+    g: DeviceGraph, members: torch.Tensor, n_valid: torch.Tensor,
+    slice_rows: Optional[int] = None,
 ) -> QuickPatterns:
     """Quick patterns of edge-induced embeddings.
 
@@ -83,7 +98,34 @@ def quick_pattern_edge(
     semantics: non-member graph edges between the same vertices are
     excluded). ``g`` may be a :class:`DeviceGraph` or a tile view: only
     ``edge_uv`` and ``labels`` are read.
+
+    A per-row function: it runs over slices of ``slice_rows`` rows
+    (:func:`quick_edge_slice_rows` by default) written into outputs
+    allocated once, so a large wave's temporaries stay bounded. The slices
+    need no host sync.
     """
+    b, k = members.shape
+    dev = members.device
+    step = slice_rows or quick_edge_slice_rows(k)
+    if b <= step:
+        return _quick_pattern_edge_rows(g, members, n_valid)
+    codes = torch.empty((b, 3), dtype=torch.int64, device=dev)
+    lv = torch.empty((b, MAX_PATTERN_VERTICES), dtype=torch.int32,
+                     device=dev)
+    n_verts = torch.empty((b,), dtype=torch.int32, device=dev)
+    for lo in range(0, b, step):
+        hi = min(lo + step, b)
+        part = _quick_pattern_edge_rows(g, members[lo:hi], n_valid[lo:hi])
+        codes[lo:hi] = part.codes
+        lv[lo:hi] = part.local_verts
+        n_verts[lo:hi] = part.n_verts
+        del part
+    return QuickPatterns(codes=codes, local_verts=lv, n_verts=n_verts)
+
+
+def _quick_pattern_edge_rows(g, members, n_valid) -> QuickPatterns:
+    """:func:`quick_pattern_edge` on one slice. Local ids, ranks and first
+    slots are int8 (2k <= 16)."""
     b, k = members.shape
     k2 = 2 * k
     dev = members.device
@@ -95,16 +137,18 @@ def quick_pattern_edge(
     verts = verts.masked_fill(~vert_ok, -1)
 
     # first-appearance local ids: the first slot holding each vertex
-    t = torch.arange(k2, device=dev)
-    same = ((verts[:, :, None] == verts[:, None, :])
-            & vert_ok[:, :, None] & vert_ok[:, None, :])
+    t = torch.arange(k2, dtype=torch.int8, device=dev)
+    same = verts[:, :, None] == verts[:, None, :]
+    same &= vert_ok[:, :, None]
+    same &= vert_ok[:, None, :]
     # argmax of the first True (0 where none, as jnp.argmax gives); int8
     # keeps the (B, 2k, 2k) temporary at a byte a pair
-    first_idx = torch.where(same, t.to(torch.int8)[:, None], k2).amin(dim=1)
-    first_idx = torch.where(first_idx == k2, 0, first_idx).to(torch.int64)
+    first_idx = torch.where(same, t[:, None], k2).amin(dim=1)   # (B, 2k)
+    del same
+    first_idx = first_idx.masked_fill(first_idx == k2, 0)
     is_first = (first_idx == t[None, :]) & vert_ok
-    rank = torch.cumsum(is_first.to(torch.int64), dim=1) - 1    # local ids
-    local_id = torch.gather(rank, 1, first_idx)                  # (B, 2k)
+    rank = torch.cumsum(is_first, dim=1, dtype=torch.int8) - 1  # local ids
+    local_id = torch.gather(rank, 1, first_idx.to(torch.int64))  # (B, 2k)
     local_id = local_id.masked_fill(~vert_ok, -1)
     n_verts = is_first.sum(dim=1, dtype=torch.int32)
 
@@ -114,13 +158,13 @@ def quick_pattern_edge(
     scatter_pos = torch.where(is_first, rank, MAX_PATTERN_VERTICES)
     lv = torch.full((b, MAX_PATTERN_VERTICES + 1), -1, dtype=torch.int32,
                     device=dev)
-    lv.scatter_(1, scatter_pos, verts.masked_fill(~is_first, -1).to(
-        torch.int32))
+    lv.scatter_(1, scatter_pos.to(torch.int64), verts.masked_fill(
+        ~is_first, -1).to(torch.int32))
     lv = lv[:, :MAX_PATTERN_VERTICES].contiguous()
 
     # adjacency bits from member edges
-    a_id = local_id[:, 0::2]                                     # (B, k)
-    b_id = local_id[:, 1::2]
+    a_id = local_id[:, 0::2].long()                              # (B, k)
+    b_id = local_id[:, 1::2].long()
     lo = torch.minimum(a_id, b_id)
     hi = torch.maximum(a_id, b_id)
     bit = torch.where(valid_e, (hi * (hi - 1)) // 2 + lo, 0)

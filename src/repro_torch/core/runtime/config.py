@@ -40,10 +40,13 @@ class RunConfig:
     #: with use_pallas, fuse candidate validity + dedup + Alg.-2 into the
     #: single-pass ``expand_canonical`` kernel (vertex mode).
     fused_expand: bool = False
-    #: how the frontier lives between supersteps; only "raw" is ported.
+    #: how the frontier lives between supersteps: "raw" keeps the dense
+    #: embedding list, "odag" stores per-size ODAGs (paper §5.2) and
+    #: re-materialises them with cost-balanced extraction (§5.3).
     store: str = "raw"
-    #: device byte budget for one materialised frontier wave (spill store,
-    #: not ported: must stay None).
+    #: device byte budget for one materialised frontier wave; when set, the
+    #: frontier store is wrapped in a SpillStore and each superstep is mined
+    #: in waves of at most this many bytes of rows.
     device_budget_bytes: Optional[int] = None
     #: fused superstep pipeline (DESIGN.md §8): a pilot chunk plus stacked
     #: drains, at most two host syncs per superstep. False = the chunk loop
@@ -98,8 +101,6 @@ class RunConfig:
         unported = {
             "checkpoint_dir": self.checkpoint_dir is not None,
             "faults": self.faults is not None,
-            "store": self.store != "raw",
-            "device_budget_bytes": self.device_budget_bytes is not None,
         }
         # unknown values raise ValueError
         self.resolve_canonical_placement()

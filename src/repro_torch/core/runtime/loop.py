@@ -136,11 +136,16 @@ class SuperstepRuntime:
                 break
             st = StepStats(step=step, size=size, n_frontier=b)
             st.frontier_bytes = store.raw_bytes
+            if store.kind == "odag":
+                st.odag_bytes = store.stored_bytes
             timer = Timer()
             done = False
             with obs.span("superstep", step=step, size=size, frontier=b):
                 # ---- re-materialise the frontier ----------------------------
                 blocks = backend.begin_step(store, st)
+                # extraction may resurrect pattern-pruned rows (a superset
+                # of the appended rows; see ODAGStore) — stats count what
+                # is actually mined
                 st.n_frontier = sum(len(blk) for blk in blocks)
                 obs.set_stat(st, "t_storage", timer.lap())
 

@@ -1,6 +1,7 @@
 """Shared device-program machinery of the superstep runtime, port of
 ``repro.core.runtime.programs``: the chunk program, device-side chunk
-slicing and quick-pattern dispatch.
+slicing, quick-pattern dispatch, buffer retirement and the store-facing
+app filter adapter.
 
 PyTorch runs eagerly, so a "chunk program" is a closure over
 :func:`explore.fused_chunk_step` with the run's knobs bound; there is no
@@ -81,6 +82,14 @@ def device_chunk(wave_dev, lo: int, cb: int, bucket: int, k: int):
     return chunk, n_valid
 
 
+def retire(buffers: list, indices=None) -> None:
+    """Drop the references ``buffers`` holds at ``indices`` (all of them
+    when None), so the caching allocator can reuse the device memory of
+    drained waves at once — the spill path's peak-memory control."""
+    for i in range(len(buffers)) if indices is None else indices:
+        buffers[i] = None
+
+
 def iter_chunks(waves, wave_dev, chunk_size: int, size: int, device):
     """Yield device-sliced, pow2-padded chunks over all waves, uploading
     each wave at most once (reusing the aggregation pass's upload)."""
@@ -95,3 +104,19 @@ def iter_chunks(waves, wave_dev, chunk_size: int, size: int, device):
             bucket = min(chunk_size, next_pow2(max(cb, 1)))
             chunk, n_valid = device_chunk(wd, lo, cb, bucket, size)
             yield wi, lo, cb, bucket, chunk, n_valid
+
+
+def store_app_filter(app: MiningApp, g: DeviceGraph):
+    """Adapt ``app.filter`` to the per-candidate signature ODAG extraction
+    re-applies (DESIGN.md §7): extraction rows are already one member set
+    per candidate, so the parent-row indirection is the identity. Returns
+    None for the base accept-all filter (nothing to re-apply)."""
+    if type(app).filter is MiningApp.filter:
+        return None
+
+    def phi(mem, nv, cnd):
+        rows = torch.arange(int(mem.shape[0]), dtype=torch.int32,
+                            device=mem.device)
+        return app.filter(g, mem, nv, rows, cnd)
+
+    return phi

@@ -1,11 +1,13 @@
 """Serial execution backend: the single-device fused superstep pipeline,
 port of ``repro.core.runtime.serial``.
 
-The sealed frontier is uploaded once and sliced into pow2-padded chunks on
-the device, a *pilot* chunk calibrates the step's output-capacity bucket,
-the remaining chunks dispatch back-to-back with counts left on the device,
-and the host drains all control values in stacked window reads — at most
-TWO host syncs per superstep (``async_chunks=True``). The chunk loop with
+The sealed frontier re-materialises in device-budget waves (one wave
+without a budget), each wave is uploaded once and sliced into pow2-padded
+chunks on the device, a *pilot* chunk calibrates the step's
+output-capacity bucket, the remaining chunks dispatch back-to-back with
+counts left on the device, and the host drains all control values in
+stacked window reads — at most TWO host syncs per superstep and wave
+(``async_chunks=True``). The chunk loop with
 one blocking count read per chunk is kept bit for bit as
 ``async_chunks=False``.
 
@@ -60,7 +62,11 @@ class SerialBackend(ExecutionBackend):
         self._agg_kernel = bool(config.aggregate_kernel)
         self._agg_bin = config.resolve_aggregate_bin()
         store = make_store(
-            config.store, device_budget_bytes=config.device_budget_bytes
+            config.store, self.g,
+            mode=app.mode,
+            app_filter=programs.store_app_filter(app, self.g),
+            use_pallas=self._use_pallas,
+            device_budget_bytes=config.device_budget_bytes,
         )
         # device-resident aggregation needs alpha at pattern granularity:
         # apps overriding the per-row aggregation_filter keep the host path
@@ -85,7 +91,9 @@ class SerialBackend(ExecutionBackend):
         self._run_qcap = next_pow2(self._agg_qcap)
         # child codes / level-1 partials computed in the chunk program are
         # only reusable when the next superstep re-materialises exactly the
-        # appended rows in order — true for the raw store
+        # appended rows in order — true for the raw store (also under a
+        # spill budget), not for ODAG extraction (which may resurrect
+        # pattern-pruned rows)
         order_preserving = (
             config.async_chunks and app.wants_patterns and store.kind == "raw"
         )
@@ -140,6 +148,10 @@ class SerialBackend(ExecutionBackend):
             )
             codes_parts.append(qp.codes.cpu().numpy())
             lv_parts.append(qp.local_verts.cpu().numpy())
+            if self.config.device_budget_bytes is not None:
+                # SpillStore contract: one budget wave resident at a time —
+                # expansion re-uploads its own wave
+                programs.retire(self._wave_dev, [wi])
         codes = (
             np.concatenate(codes_parts)
             if codes_parts else np.zeros((0, 3), np.int64)
@@ -270,6 +282,9 @@ class SerialBackend(ExecutionBackend):
                 qp.codes,
                 qp.local_verts if self.app.wants_domains else None,
             )
+            del qp
+            if self.config.device_budget_bytes is not None:
+                programs.retire(wave_dev, [wi])
         return lvl1
 
     def _scatter_domains(self, lvl1, table, st) -> np.ndarray:
@@ -341,12 +356,41 @@ class SerialBackend(ExecutionBackend):
             #: the NEXT superstep's level-1 state, folded from the chunk
             #: partials as the drain windows complete (DESIGN.md §10)
             lvl1 = self._new_level1() if self.with_aggregates else None
-            c, self.capacity = self._expand_fused(
-                store, blocks, wave_dev, size, self.capacity, st, lvl1
-            )
-            carried = lvl1 if self.with_aggregates else c
+            if config.device_budget_bytes is not None and len(blocks) > 1:
+                # SpillStore contract (DESIGN.md §7): at most one budget
+                # wave on the device at a time — pipeline and drain one
+                # wave per pass (syncs O(frontier / budget), still
+                # independent of the chunk count) and drop each wave's
+                # buffers before the next is uploaded
+                parts = []
+                for wi in range(len(blocks)):
+                    c, self.capacity = self._expand_fused(
+                        store, [blocks[wi]], [wave_dev[wi]], size,
+                        self.capacity, st, lvl1,
+                    )
+                    programs.retire(wave_dev, [wi])
+                    if c is not None:
+                        parts.append(c)
+                if self.with_patterns:
+                    carried = (
+                        (
+                            np.concatenate([p[0] for p in parts]),
+                            np.concatenate([p[1] for p in parts]),
+                        )
+                        if parts
+                        else None
+                    )
+                else:
+                    carried = lvl1
+            else:
+                c, self.capacity = self._expand_fused(
+                    store, blocks, wave_dev, size, self.capacity, st, lvl1
+                )
+                carried = lvl1 if self.with_aggregates else c
         else:
             self._expand_legacy(store, blocks, size, st)
+        # every chunk has been drained — the step's device waves are dead
+        programs.retire(wave_dev)
         return carried
 
     def end_step(self, store, st) -> None:

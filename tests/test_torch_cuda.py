@@ -567,6 +567,83 @@ def test_edge_chunk_program_matches_cpu(cuda_device):
             assert torch.equal(a.cpu(), b)
 
 
+@pytest.mark.parametrize("mode", ["vertex", "edge"])
+def test_odag_extraction_on_the_card_matches_cpu(cuda_device, mode):
+    """ODAG extraction with the graph on the card: the same rows, in the
+    same order, as on the CPU, whatever the chunk of candidate pairs; in
+    vertex mode the Algorithm-2 check launches ``canonical_check`` once a
+    level and chunk, and ``stream_compact`` compacts every chunk."""
+    from repro_torch.core import odag
+    g = TG.random_labeled(300, 1500, n_labels=2, seed=4)
+    app = (MotifsApp(max_size=3, collect_embeddings=True) if mode == "vertex"
+           else FSMApp(support=1, max_size=3, collect_embeddings=True))
+    emb = run(g, app, RunConfig(), device="cpu").embeddings[3]
+    o = odag.build(emb[::2])
+    want = odag.extract(TG.to_device(g, "cpu"), o, mode=mode,
+                        use_pallas=True)
+    dg = TG.to_device(g, cuda_device)
+    for chunk in (odag.EXTRACT_PAIRS, 1000):
+        before = dict(build.LAUNCHES)
+        stats = {}
+        got = odag.extract(dg, o, mode=mode, use_pallas=True, chunk=chunk,
+                           stats=stats)
+        launches = {k: build.LAUNCHES[k] - before[k] for k in before}
+        np.testing.assert_array_equal(got, want)
+        assert launches["stream_compact"] == stats["chunks"]
+        assert launches["canonical_check"] == (
+            stats["chunks"] if mode == "vertex" else 0)
+        assert stats["host_syncs"] == stats["chunks"] + 1
+
+
+@pytest.mark.parametrize("knobs", [
+    dict(store="odag"), dict(device_budget_bytes=1 << 14),
+    dict(store="odag", device_budget_bytes=1 << 14),
+], ids=["odag", "spill_raw", "spill_odag"])
+@pytest.mark.parametrize("app", [MotifsApp(max_size=3), CliquesApp(max_size=4),
+                                 FSMApp(support=2, max_size=3)],
+                         ids=["motifs", "cliques", "fsm"])
+def test_store_card_run_equals_cpu_run(cuda_device, app, knobs):
+    """The ODAG and spill stores on the card against the same runs on the
+    CPU: patterns, embeddings, every step's counters (``odag_bytes``
+    included)."""
+    g = (TG.citeseer_like(0.1) if isinstance(app, FSMApp)
+         else TG.mico_like(0.002))
+    cfg = RunConfig(chunk_size=512, **knobs)
+    gpu = run(g, app, cfg, device=cuda_device)
+    cpu = run(g, app, cfg, device="cpu")
+    assert gpu.patterns == cpu.patterns
+    assert sorted(gpu.embeddings) == sorted(cpu.embeddings)
+    for size, emb in cpu.embeddings.items():
+        np.testing.assert_array_equal(gpu.embeddings[size], emb)
+    for a, b in zip(gpu.stats.steps, cpu.stats.steps):
+        assert (a.n_frontier, a.n_children, a.n_generated, a.n_canonical,
+                a.n_host_syncs, a.n_quick_patterns, a.frontier_bytes,
+                a.odag_bytes, a.bytes_to_host) == (
+            b.n_frontier, b.n_children, b.n_generated, b.n_canonical,
+            b.n_host_syncs, b.n_quick_patterns, b.frontier_bytes,
+            b.odag_bytes, b.bytes_to_host)
+
+
+def test_edge_quick_patterns_in_slices_on_the_card(cuda_device):
+    """The edge quick patterns over row slices on the card equal one call
+    over all rows on the CPU."""
+    from repro_torch.core import pattern
+    g = TG.citeseer_like(0.3)
+    rng = np.random.default_rng(5)
+    b = 50_000
+    nv = torch.from_numpy(rng.integers(0, 5, b).astype(np.int32))
+    mem = torch.from_numpy(rng.integers(0, g.m, (b, 4)).astype(np.int32))
+    mem = torch.where(torch.arange(4)[None, :] < nv[:, None], mem, -1)
+    want = pattern.quick_pattern_edge(TG.to_device(g, "cpu"), mem, nv)
+    dg = TG.to_device(g, cuda_device)
+    for slice_rows in (None, 4097):
+        got = pattern.quick_pattern_edge(dg, mem.to(cuda_device),
+                                         nv.to(cuda_device),
+                                         slice_rows=slice_rows)
+        for a, w in zip(got, want):
+            assert torch.equal(a.cpu(), w)
+
+
 # ---------------------------------------------------------------------------
 # model zoo: RMSNorm and flash attention (qwen2.5-14b widths: d_model 5,120,
 # 40 heads over 8 KV heads of 128; smollm-135m: 9 over 3 of 64)

@@ -73,15 +73,21 @@ def test_entry_points_need_a_card_unless_cpu_is_asked(monkeypatch):
 
 
 @pytest.mark.parametrize("knob", [
-    dict(store="odag"), dict(device_budget_bytes=1 << 20),
-    dict(checkpoint_dir="ckpt"),
-    dict(log_every=1), dict(store="spill"),
+    dict(checkpoint_dir="ckpt"), dict(log_every=1),
     dict(trace=True), dict(faults=object()),
 ])
 def test_unported_paths_raise(knob):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         run(TG.triangle_plus_tail(), MotifsApp(max_size=3), RunConfig(**knob),
             device="cpu")
+
+
+def test_unknown_store_kind_raises():
+    """``make_store`` takes "raw" and "odag", as the reference's does: a
+    spill store comes from ``device_budget_bytes``, not from ``store``."""
+    with pytest.raises(ValueError, match="spill"):
+        run(TG.triangle_plus_tail(), MotifsApp(max_size=3),
+            RunConfig(store="spill"), device="cpu")
 
 
 @pytest.mark.parametrize("knob", [

@@ -8,6 +8,7 @@ thread per core in every worker) oversubscribes the CPU against the JAX
 tests that run beside it."""
 import contextlib
 import dataclasses
+import weakref
 from unittest import mock
 
 import jax
@@ -15,7 +16,9 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
+from repro.core import canonical as jcanonical
 from repro.core import graph as JG
+from repro.core import odag as jodag
 from repro.core import run as jrun
 from repro.core.runtime import programs as jprograms
 from repro.core.runtime import serial as jserial
@@ -90,6 +93,103 @@ SWAPS = {
 }
 
 
+def _next_pow2(x: int) -> int:
+    return 1 << max(0, (int(x) - 1).bit_length())
+
+
+def _bucketed(jfn, *fixed):
+    """``jfn(*fixed, *arrays)``, a jitted per-row function of its arrays'
+    leading axis, called at a power-of-two row bucket: the rows are padded
+    with -1 up to the bucket, and the output is cut back to them (numpy).
+    It compiles once a bucket."""
+
+    def call(*arrays):
+        arrays = [np.asarray(a) for a in arrays]
+        b = arrays[0].shape[0]
+        pad = _next_pow2(b) - b
+        if pad:
+            arrays = [np.concatenate([a, np.full((pad,) + a.shape[1:], -1,
+                                                 a.dtype)]) for a in arrays]
+        return np.asarray(jfn(*fixed, *arrays))[:b]
+
+    return call
+
+
+_IS_EDGE = jax.jit(lambda g, u, v: g.is_edge(u, v))
+_VERTEX_CHECK = jax.jit(jcanonical.vertex_check)
+_EDGE_CHECK = jax.jit(jcanonical.edge_check)
+#: app filter -> its jitted form, one a run's store filter
+_FILTERS = weakref.WeakKeyDictionary()
+
+
+class _HostGraph:
+    """What ``repro.core.odag.extract`` reads of its graph: ``edge_uv`` as
+    a numpy array and ``is_edge`` as a bucketed program."""
+
+    def __init__(self, g):
+        self.g = g
+        self.edge_uv = np.asarray(g.edge_uv)
+        self.is_edge = _bucketed(_IS_EDGE, g)
+
+
+class _HostJnp:
+    """The ``jnp`` names ``repro.core.odag.extract`` calls between the
+    graph's functions, on numpy: array glue of the same integers."""
+
+    asarray = staticmethod(np.asarray)
+    full = staticmethod(np.full)
+    maximum = staticmethod(np.maximum)
+    int32 = np.int32
+
+
+class _HostCanonical:
+    """``repro.core.canonical``'s two checks as bucketed programs over the
+    real graph."""
+
+    @staticmethod
+    def vertex_check(hg, members, n_valid, cand):
+        return _bucketed(_VERTEX_CHECK, hg.g)(members, n_valid, cand)
+
+    @staticmethod
+    def edge_check(hg, members, n_valid, cand):
+        return _bucketed(_EDGE_CHECK, hg.g)(members, n_valid, cand)
+
+
+_EXTRACT = jodag.extract
+
+
+def _host_extract(g, odag, app_filter=None, chunk=65536, mode="vertex",
+                  use_pallas=False, interpret=None):
+    """``repro.core.odag.extract`` itself, with its graph's functions, its
+    two checks and the app filter each a bucketed program and its array
+    glue on numpy (the Pallas route is refused: ``jax_run`` takes the jnp
+    routes)."""
+    if use_pallas:
+        raise ValueError("the extraction swap takes the jnp routes only")
+    phi = None
+    if app_filter is not None:
+        if app_filter not in _FILTERS:
+            _FILTERS[app_filter] = jax.jit(app_filter)
+        phi = _bucketed(_FILTERS[app_filter])
+    return _EXTRACT(_HostGraph(g), odag, app_filter=phi, chunk=chunk,
+                    mode=mode)
+
+
+@contextlib.contextmanager
+def host_extract():
+    """Inside the block, the JAX package's ODAG extraction (``odag.extract``
+    and, through it, ``extract_partition`` and the ODAG store) runs as
+    :func:`_host_extract`: the same integers, compiled once a row bucket
+    where the eager form compiles each of its operations at every new
+    shape (~5 s an extraction on a CPU).
+    ``test_torch_odag.py::test_host_extract_swap_matches_eager`` holds it to
+    the eager form."""
+    with mock.patch.object(jodag, "extract", _host_extract), \
+            mock.patch.object(jodag, "jnp", _HostJnp), \
+            mock.patch.object(jodag, "canonical", _HostCanonical):
+        yield
+
+
 @contextlib.contextmanager
 def quick_compiles():
     """XLA at its lowest optimization level inside the block. The JAX
@@ -115,8 +215,9 @@ def jax_run(g, app, config):
     if config.cost_model not in UNTIMED_COST_MODELS:
         raise ValueError(f"jax_run takes cost_model in {UNTIMED_COST_MODELS},"
                          f" not {config.cost_model!r}")
-    with quick_compiles(), mock.patch.object(jprograms, "quick_patterns",
-                           SWAPS["quick_patterns"]), \
+    with quick_compiles(), host_extract(), \
+            mock.patch.object(jprograms, "quick_patterns",
+                              SWAPS["quick_patterns"]), \
             mock.patch.object(jprograms, "device_chunk",
                               SWAPS["device_chunk"]), \
             mock.patch.object(jserial.SerialBackend, "_rec", SWAPS["rec"]):
