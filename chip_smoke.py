@@ -123,7 +123,44 @@ Phases, in order; any failure exits non-zero and prints no result:
         support 25, 4 edges (~2.6e8 embeddings at step 4), under
         ``device_budget_bytes=2**30`` and then in one wave: the waves per
         step, the walls, the peaks; a frequent pattern of 4 edges, the
-        same patterns in both runs and, up to 3 edges, 7b's patterns.
+        same patterns in both runs and, up to 3 edges, 7b's patterns;
+  9. the runtime's control plane, through ``run``, ``resume`` and
+     ``run_supervised``:
+     a. the pilot-calibrated cost model (``cost_model="auto"``) on
+        ``mico_like(0.1)`` size-3 motifs and ``citeseer_like(1.0)`` FSM
+        (support 25, 3 edges), each run twice: the decision table (source,
+        knobs, probe timings), the seconds ``resolve`` took and the pilot's
+        launches; the source ``calibrated``, the three kernel knobs on,
+        the patterns of phase 5's and 7b's ``off`` runs, no second pilot;
+        a table written to a ``cost_model_dir`` read back as ``cached`` by
+        a child process;
+     b. checkpoints of the motif run (``checkpoint_every=1``: per step
+        ``t_checkpoint`` and the cut's bytes), resumed from the step-2 cut
+        under the raw and the ODAG store; a child process killed by an
+        ``exit`` fault at step 3's aggregation (exit code 17), resumed
+        from what it left; each equal to phase 5's run;
+     c. ``run_supervised`` on the motifs under a crash at step 2's
+        aggregation, an OOM at step 2's expansion (the ``budget_capped``
+        rung), a corrupt step-2 cut and a crash after it (the rollback) and
+        a ``saturate`` (the wide re-fold), and on the FSM run under one
+        crash: each bit-identical to its clean supervised run, the retry
+        stamped on step 2 with its ``t_recovery``, the reference's rungs,
+        the peak within 1.1x the clean run's; an expansion crash repeated
+        three times, which on the card takes ``fused_off`` and no rung to
+        the plain versions, the kernel knobs still on; a real allocation
+        past a per-process memory cap in a child classified ``oom``;
+     d. tracing the motif run: the Chrome trace valid, phase coverage
+        >= 0.95, the untraced run's host syncs per step, a device-memory
+        gauge; ``trace_sync`` under ``graph_partition=4`` (``t_gather`` >
+        0, fences counted); ``log_every=1`` one line a superstep;
+     and no run without an injected fault has a recovery report.
+
+Phases 4, 5, 7a-b and 8a-b pass ``cost_model="off"``: under ``"auto"`` a
+graph of 2,048 edges or more is calibrated, and the card and the CPU may
+then place phases differently, which moves per-step counters such as
+``bytes_to_host`` and ``n_host_syncs``; ``"off"`` resolves as ``"auto"``
+did before the calibration was ported, so those phases' checks and records
+stay comparable with earlier runs. 7c and 8c run the default, calibrated.
 
 Times are amortised (``time_call``): after a warm-up, one CUDA event pair
 around N back-to-back calls (N >= 20, or enough for 2 ms; one call for the
@@ -160,11 +197,15 @@ from __future__ import annotations
 import argparse
 import contextlib
 import importlib
+import io
 import json
 import math
+import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 from pathlib import Path
@@ -1196,6 +1237,59 @@ class Level2Tables:
         self.agg._level2_program = self.orig
 
 
+class Calibrations:
+    """Records each calibration pilot (``costmodel.calibrate``) while it is
+    entered: the seconds, the kernel launches the probes made (part of the
+    run's launches) and the seconds of a kernel build the probes'
+    first launches paid."""
+
+    def __init__(self, build):
+        self.build = build
+        self.calls, self.seconds, self.build_seconds = 0, 0.0, 0.0
+        self.launches = {}
+
+    def __enter__(self):
+        from repro_torch.core.runtime import costmodel
+
+        self.mod, self.orig = costmodel, costmodel.calibrate
+
+        def spy(*a, **k):
+            before = dict(self.build.LAUNCHES)
+            built = self.build.last_build_seconds
+            t0 = time.perf_counter()
+            try:
+                return self.orig(*a, **k)
+            finally:
+                self.calls += 1
+                self.seconds += time.perf_counter() - t0
+                if self.build.last_build_seconds != built:
+                    self.build_seconds += self.build.last_build_seconds
+                for name, v in self.build.LAUNCHES.items():
+                    if v - before[name]:
+                        self.launches[name] = (self.launches.get(name, 0)
+                                               + v - before[name])
+
+        costmodel.calibrate = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.calibrate = self.orig
+
+    def record(self) -> dict:
+        return {"calls": self.calls, "seconds": self.seconds,
+                "build_seconds": self.build_seconds,
+                "launches": dict(self.launches)}
+
+
+def decision_line(cm) -> str:
+    """One line of a decision table: its source, every knob, every timing."""
+    knobs = ", ".join(f"{k}={cm[k]}" for k in (
+        "async_chunks", "device_aggregate", "use_pallas", "compact_kernel",
+        "aggregate_kernel", "aggregate_bin", "canonical_placement"))
+    times = ", ".join(f"{k} {v}" for k, v in cm.get("timings", {}).items())
+    return f"{cm['source']}: {knobs}; µs: {times}"
+
+
 STEP_FIELDS = {"frontier": "n_frontier", "children": "n_children",
                "n_chunks": "n_chunks", "n_host_syncs": "n_host_syncs",
                "quick_patterns": "n_quick_patterns",
@@ -1211,7 +1305,9 @@ def counted_run(torch, run, build, totals, label, g, app, cfg, clock=None,
     kernels counted (the counts zeroed just before the run, read just
     after and added to ``totals``), its wall, its peak device bytes and its
     steps; every step's host syncs within the window rule (the pilot, then
-    one stacked drain per window of chunks). ``clock`` (a
+    one stacked drain per window of chunks) or, where the run's table
+    chose the chunk loop, one a chunk plus its capacity retries; the
+    record names the pipeline. ``clock`` (a
     :class:`HostClock`) is entered around the run, and ``more(step)`` adds
     fields to each step's record. Returns the record, the result and the
     :class:`Level2Tables` spy."""
@@ -1222,7 +1318,7 @@ def counted_run(torch, run, build, totals, label, g, app, cfg, clock=None,
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     with Level2Tables(aggregation) as spy, WaveLog() as waves, \
-            clock or contextlib.nullcontext():
+            Calibrations(build) as cal, clock or contextlib.nullcontext():
         build.reset_launches()
         t0 = time.perf_counter()
         res = run(g, app, cfg)
@@ -1233,23 +1329,39 @@ def counted_run(torch, run, build, totals, label, g, app, cfg, clock=None,
         totals[name] += v
     peak = torch.cuda.max_memory_allocated()
     steps = []
+    fused = res.stats.cost_model["async_chunks"]
+    pipeline = "fused" if fused else "chunk loop"
     for s, n_waves in zip(res.stats.steps, waves.per_step("cuda")):
-        # each wave of a spilled step pilots and drains on its own
-        bound = 2 * n_waves - 1 + math.ceil(s.n_chunks / _DRAIN_WINDOW)
+        if fused:
+            # each wave of a spilled step pilots and drains on its own
+            bound = 2 * n_waves - 1 + math.ceil(s.n_chunks / _DRAIN_WINDOW)
+        else:
+            # the chunk loop (which a calibrated table may pick): one sync
+            # a chunk, plus one a capacity retry; each retry lifts the
+            # step's bucket to a larger power of two, from
+            # initial_capacity to at most next_pow2(n_generated)
+            bound = s.n_chunks + max(
+                0, (max(s.n_generated, 1) - 1).bit_length()
+                - (cfg.initial_capacity.bit_length() - 1))
         need(s.n_host_syncs <= (bound if s.n_chunks else 0),
              f"{label} step {s.step}: {s.n_host_syncs} host syncs for "
-             f"{s.n_chunks} chunks in {n_waves} waves")
+             f"{s.n_chunks} chunks in {n_waves} waves ({pipeline})")
         step = {"step": s.step, "waves": n_waves}
         step.update({k: getattr(s, f) for k, f in STEP_FIELDS.items()})
         step.update(more(s) if more else {})
         steps.append(step)
     rec = {"run": label, "wall_s": wall, "peak_bytes": peak,
-           "launches": launches, "steps": steps,
+           "pipeline": pipeline, "launches": launches, "steps": steps,
            "patterns": len(res.patterns),
            "chunk_signatures": len(res.stats.chunk_signatures),
-           "cost_model": res.stats.cost_model, "level2": spy.calls}
+           "cost_model": res.stats.cost_model, "level2": spy.calls,
+           "calibration": cal.record()}
     log(f"  {label}: wall {wall:.3f} s, peak {peak / 2**30:.2f} GiB, "
-        f"{len(res.patterns)} patterns, launches {launches}")
+        f"{len(res.patterns)} patterns, {pipeline}, launches {launches}")
+    if cal.calls:
+        log(f"    calibrated ({cal.calls} pilot): {cal.seconds:.3f} s, nvcc "
+            f"{cal.build_seconds:.2f} s of it, launches {cal.launches}; "
+            f"table {decision_line(res.stats.cost_model)}")
     for step in steps:
         log(f"    step {step['step']}: " + ", ".join(
             f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
@@ -1527,9 +1639,11 @@ def fsm_runs(torch, np, run, build, cases):
             need(spy.calls and all(c["orbits"] for c in spy.calls),
                  f"{label}: the device level 2 ran without its orbit pass "
                  f"({spy.calls})")
-            need(launches["canonical_refine"] == 2 * len(spy.calls),
-                 f"{label}: {launches['canonical_refine']} refine launches "
-                 f"for {len(spy.calls)} device level-2 passes with orbits")
+            refines = (launches["canonical_refine"] - rec["calibration"]
+                       ["launches"].get("canonical_refine", 0))
+            need(refines == 2 * len(spy.calls),
+                 f"{label}: {refines} refine launches for "
+                 f"{len(spy.calls)} device level-2 passes with orbits")
             need(launches["radix_hist"] > 0 and launches["radix_scatter"] > 0,
                  f"{label}: the radix bin never launched")
         # the repo's own check: the frequent single-edge patterns and their
@@ -1554,15 +1668,16 @@ def fsm_phase(torch, np, run, RunConfig, G, build):
     7c the domain stress on mico_like(0.1) at size 2."""
     from repro_torch.core.apps import FSMApp
 
+    OFF = RunConfig(cost_model="off")
     log(f"[7a] FSM: card port vs CPU port on citeseer_like({FSM_SMALL})")
     small = card_vs_cpu(torch, run, G.citeseer_like, [
-        ("fsm", FSM_SMALL, FSMApp(**FSM_SMALL_APP), RunConfig()),
+        ("fsm", FSM_SMALL, FSMApp(**FSM_SMALL_APP), OFF),
         ("fsm_force_device", FSM_SMALL, FSMApp(**FSM_SMALL_APP),
          RunConfig(cost_model="force_device")),
         ("fsm_host_level1", FSM_SMALL, FSMApp(**FSM_SMALL_APP),
-         RunConfig(device_aggregate=False)),
+         RunConfig(cost_model="off", device_aggregate=False)),
         ("fsm_partitioned", FSM_SMALL, FSMApp(**FSM_SMALL_APP),
-         RunConfig(graph_partition=PARTS)),
+         RunConfig(cost_model="off", graph_partition=PARTS)),
     ])
     fsm_chunk_is_sync_free(torch, np, G)
     log("  FSM chunk programs (whole graph and partitioned) ran under sync "
@@ -1575,14 +1690,14 @@ def fsm_phase(torch, np, run, RunConfig, G, build):
     force = RunConfig(cost_model="force_device")
     totals, runs, results, table = fsm_runs(
         torch, np, run, build, [
-            ("fsm_citeseer", cite, FSMApp(**FSM_MAIN_APP), RunConfig()),
+            ("fsm_citeseer", cite, FSMApp(**FSM_MAIN_APP), OFF),
             ("fsm_citeseer_force_device", cite, FSMApp(**FSM_MAIN_APP),
              force),
             ("fsm_citeseer_partitioned", cite, FSMApp(**FSM_MAIN_APP),
-             RunConfig(graph_partition=PARTS)),
+             RunConfig(cost_model="off", graph_partition=PARTS)),
             ("fsm_mico_domains", G.mico_like(0.1), FSMApp(**FSM_STRESS_APP),
              RunConfig()),
-            ("fsm_citeseer4", deep, FSMApp(**FSM_DEEP_APP), RunConfig()),
+            ("fsm_citeseer4", deep, FSMApp(**FSM_DEEP_APP), OFF),
             ("fsm_citeseer4_force_device", deep, FSMApp(**FSM_DEEP_APP),
              force),
         ])
@@ -1723,7 +1838,7 @@ def store_card_vs_cpu(torch, run, RunConfig, G):
     from repro_torch.core.apps import CliquesApp, FSMApp, MotifsApp
 
     def peak(make, scale, app):
-        res = run(make(scale), app, RunConfig(), device="cpu")
+        res = run(make(scale), app, RunConfig(cost_model="off"), device="cpu")
         return max(s.frontier_bytes for s in res.stats.steps)
 
     motifs, fsm = MotifsApp(max_size=3), FSMApp(**FSM_SMALL_APP)
@@ -1733,21 +1848,22 @@ def store_card_vs_cpu(torch, run, RunConfig, G):
         f"(motifs budget {budget} B, an eighth of the peak frontier), "
         f"mico_like({STORE_TINY}) and citeseer_like({FSM_SMALL}) (FSM "
         f"budget {fsm_budget} B)")
+    off = dict(cost_model="off")
     cases = [
         ("motifs4_odag", G.mico_like, STORE_TINY, MotifsApp(max_size=4),
-         RunConfig(store="odag")),
+         RunConfig(store="odag", **off)),
         ("motifs_odag", G.mico_like, STORE_SMALL, motifs,
-         RunConfig(store="odag")),
+         RunConfig(store="odag", **off)),
         ("cliques_odag", G.mico_like, STORE_SMALL, CliquesApp(max_size=4),
-         RunConfig(store="odag")),
+         RunConfig(store="odag", **off)),
         ("motifs_spill_raw", G.mico_like, STORE_SMALL, motifs,
-         RunConfig(device_budget_bytes=budget)),
+         RunConfig(device_budget_bytes=budget, **off)),
         ("motifs_spill_odag", G.mico_like, STORE_SMALL, motifs,
-         RunConfig(store="odag", device_budget_bytes=budget)),
+         RunConfig(store="odag", device_budget_bytes=budget, **off)),
         ("fsm_odag", G.citeseer_like, FSM_SMALL, fsm,
-         RunConfig(store="odag")),
+         RunConfig(store="odag", **off)),
         ("fsm_spill_odag", G.citeseer_like, FSM_SMALL, fsm,
-         RunConfig(store="odag", device_budget_bytes=fsm_budget)),
+         RunConfig(store="odag", device_budget_bytes=fsm_budget, **off)),
     ]
     out = {}
     for name, make, scale, app, cfg in cases:
@@ -1792,7 +1908,8 @@ def store_main_path(torch, np, run, RunConfig, G, build, raw):
     ):
         with ExtractLog(torch, build) as ex:
             rec, res, _ = counted_run(torch, run, build, totals, label, g,
-                                      app, RunConfig(store="odag"),
+                                      app, RunConfig(store="odag",
+                                                     cost_model="off"),
                                       more=fig9)
         need(res.patterns == base.patterns,
              f"{label}: patterns differ from phase 5's raw-store run")
@@ -1881,6 +1998,425 @@ def fsm_depth_runs(torch, run, RunConfig, G, build, totals, fewer_edges=None):
          "FSM to 4 edges: the budgeted and the one-wave runs differ")
     log("  the one-wave run: identical patterns")
     return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: the runtime's control plane (cost model, checkpoints, supervisor,
+# tracing)
+# ---------------------------------------------------------------------------
+
+#: child of 9a: resolve the FSM table from the directory the parent filled
+CACHE_CHILD = """
+import json, sys
+from repro_torch.core import RunConfig, graph as G, to_device
+from repro_torch.core.apps import FSMApp
+from repro_torch.core.runtime import costmodel
+_, t = costmodel.resolve(RunConfig(cost_model_dir=sys.argv[1]),
+                         to_device(G.citeseer_like(1.0)),
+                         FSMApp(**json.loads(sys.argv[2])), "serial")
+print(json.dumps(t.as_dict()))
+"""
+
+#: child of 9b: the checkpointed motif run, killed at step 3's aggregation
+#: (size-3 motifs expand at steps 1 and 2 only)
+EXIT_CHILD = """
+import sys
+from repro_torch.core import FaultPlan, RunConfig, graph as G, run
+from repro_torch.core.apps import MotifsApp
+run(G.mico_like(0.1), MotifsApp(max_size=3),
+    RunConfig(checkpoint_dir=sys.argv[1], checkpoint_every=1,
+              faults=FaultPlan([("aggregate", 3, "exit")])))
+raise SystemExit("the exit fault never tripped")
+"""
+
+#: child of 9c: a real allocation past a per-process memory cap
+OOM_CHILD = """
+import torch
+from repro_torch.core.runtime import faults
+torch.cuda.set_per_process_memory_fraction(0.01)
+try:
+    torch.empty(8 << 30, dtype=torch.uint8, device="cuda")
+except Exception as e:
+    print(type(e).__name__, faults.classify_failure(e))
+else:
+    raise SystemExit("8 GiB allocated under a 1 % cap")
+"""
+
+
+def child(script, *args, timeout=600):
+    """Run ``script`` in a Python process of its own on the card, with
+    this checkout's ``src`` on its path."""
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    return subprocess.run([sys.executable, "-c", script, *map(str, args)],
+                          env=env, capture_output=True, text=True,
+                          timeout=timeout)
+
+
+CONTROL_STEP_FIELDS = ("n_frontier", "n_children", "n_chunks",
+                       "n_host_syncs", "t_expand", "t_aggregate",
+                       "t_storage", "t_checkpoint", "t_gather", "n_retries",
+                       "t_recovery")
+
+
+def control_plane_phase(torch, np, G, build, motifs5, fsm7b):
+    """Phase 9: the runtime's control plane on the card, through the entry
+    points a user calls. 9a the pilot-calibrated cost model (``auto``) on
+    mico_like(0.1) motifs and citeseer_like(1.0) FSM, its process cache and
+    its disk cache read back by a child process; 9b checkpoints, resume
+    from the step-2 cut (raw and ODAG stores) and from what a child killed
+    at step 3 left; 9c ``run_supervised`` under injected faults (crash,
+    OOM, corruption, saturation; FSM with domains; a thrice-repeated
+    expansion crash, whose ladder stops before the plain versions),
+    bit-identical to the clean runs within 1.1x their peak, and a real OOM
+    in a child
+    classified ``oom``; 9d tracing (schema, coverage >= 0.95, no extra host
+    sync, a device-memory gauge), ``trace_sync`` on the partitioned layout
+    and ``log_every``. ``motifs5`` is phase 5's motif result, ``fsm7b`` 7b's
+    FSM patterns to 3 edges."""
+    from repro_torch.core import (
+        FaultPlan, RunConfig, SuperstepRuntime, obs, resume, run,
+        run_supervised,
+    )
+    from repro_torch.core.apps import FSMApp, MotifsApp
+    from repro_torch.core.runtime import checkpoint as ckpt_lib
+    from repro_torch.core.runtime import costmodel, faults, loop
+
+    t_phase = time.perf_counter()
+    totals = {name: 0 for name in build.LAUNCHES}
+    runs, out = [], {}
+    mico, cite = G.mico_like(0.1), G.citeseer_like(1.0)
+    motifs = lambda: MotifsApp(max_size=3)      # noqa: E731
+    fsm = lambda: FSMApp(**FSM_MAIN_APP)        # noqa: E731
+    clean_results = []          # every run of the phase with no fault
+    retries = []                # every failure the supervisor retried
+    release = loop._release_attempt
+
+    def spy_release(exc, kind, device):
+        retries.append(kind)
+        return release(exc, kind, device)
+
+    def timed(label, fn, clean=True):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        with Calibrations(build) as cal:
+            build.reset_launches()
+            t0 = time.perf_counter()
+            res = fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = dict(build.LAUNCHES)
+        for name, v in launches.items():
+            totals[name] += v
+        rec = {"run": label, "wall_s": wall,
+               "peak_bytes": torch.cuda.max_memory_allocated(),
+               "launches": {k: v for k, v in launches.items() if v},
+               "calibration": cal.record(),
+               "cost_model": res.stats.cost_model, "recovery": res.recovery,
+               "patterns": len(res.patterns),
+               "steps": [{"step": s.step, **{f: getattr(s, f)
+                                             for f in CONTROL_STEP_FIELDS}}
+                         for s in res.stats.steps]}
+        runs.append(rec)
+        if clean:
+            clean_results.append((label, res))
+        log(f"  {label}: wall {wall:.3f} s, peak "
+            f"{rec['peak_bytes'] / 2**30:.2f} GiB, {len(res.patterns)} "
+            f"patterns, source {res.stats.cost_model['source']}, recovery "
+            f"{res.recovery}")
+        for st in rec["steps"]:
+            log("    " + ", ".join(
+                f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
+                for k, v in st.items()))
+        return rec, res
+
+    work = Path(tempfile.mkdtemp(prefix="chip-smoke-control-"))
+    loop._release_attempt = spy_release
+    try:
+        # ---- 9a: the cost model ------------------------------------------
+        log("[9a] cost model 'auto': size-3 motifs on mico_like(0.1) "
+            f"({mico.m} edges), FSM {FSM_MAIN_APP} on citeseer_like(1.0) "
+            f"({cite.m} edges); each run twice")
+        costmodel.clear_cache()
+        tables = {}
+        for label, g, mk, want in (("motifs_auto", mico, motifs,
+                                    motifs5.patterns),
+                                   ("fsm_auto", cite, fsm, fsm7b)):
+            for turn in ("first", "again"):
+                clock = HostClock(resolve=(costmodel, "resolve"))
+                with clock:
+                    rec, res = timed(f"{label}_{turn}",
+                                     lambda: run(g, mk(), RunConfig()))
+                rec["resolve_s"] = clock.seconds["resolve"]
+                cm = res.stats.cost_model
+                log(f"    resolve {rec['resolve_s']:.3f} s; table "
+                    f"{decision_line(cm)}")
+                need(cm["source"] == "calibrated",
+                     f"{label}: the table's source is {cm['source']}")
+                need(all(cm[k] is True for k in (
+                    "use_pallas", "compact_kernel", "aggregate_kernel")),
+                     f"{label}: a kernel knob is off on the card: {cm}")
+                need(res.patterns == want, f"{label}: patterns differ from "
+                     "the cost_model='off' run of phase 5 or 7b")
+                need(rec["calibration"]["calls"] == (turn == "first"),
+                     f"{label} {turn}: {rec['calibration']['calls']} pilots")
+                if turn == "again":
+                    need(cm == tables[label], f"{label}: the second run's "
+                         "table differs from the first's")
+                tables[label] = cm
+        out["tables"] = tables
+        cache_dir = work / "costmodel"
+        costmodel.clear_cache()
+        _, table = costmodel.resolve(
+            RunConfig(cost_model_dir=str(cache_dir)), G.to_device(cite),
+            fsm(), "serial")
+        need(table.source == "calibrated" and list(cache_dir.glob("*.json")),
+             f"the FSM table was not written to {cache_dir}")
+        t0 = time.perf_counter()
+        proc = child(CACHE_CHILD, cache_dir, json.dumps(FSM_MAIN_APP))
+        need(proc.returncode == 0, f"cache child failed:\n{proc.stderr}")
+        got = json.loads(proc.stdout.strip().splitlines()[-1])
+        need(got["source"] == "cached" and all(
+            got[k] == getattr(table, k) for k in costmodel.DECIDED_KNOBS),
+            f"the child did not load the table back: {got}")
+        out["cache_child_s"] = time.perf_counter() - t0
+        log(f"  a child process loaded the FSM table back as 'cached' "
+            f"({out['cache_child_s']:.1f} s)")
+
+        # ---- 9b: checkpoint and resume -----------------------------------
+        log("[9b] checkpoints: size-3 motifs on mico_like(0.1), "
+            "checkpoint_every=1")
+        ck = work / "ckpt"
+        rec, res = timed("motifs_checkpointed", lambda: run(
+            mico, motifs(), RunConfig(checkpoint_dir=str(ck),
+                                      checkpoint_every=1)))
+        need(res.patterns == motifs5.patterns,
+             "checkpointed motifs differ from phase 5's")
+        cuts = {}
+        for s in res.stats.steps:
+            path = Path(ckpt_lib.checkpoint_path(str(ck), s.step + 1))
+            if path.exists():
+                cuts[s.step] = {"bytes": path.stat().st_size,
+                                "t_checkpoint": s.t_checkpoint}
+        rec["checkpoints"] = cuts
+        log(f"    cuts by step: {cuts}")
+        need(2 in cuts and cuts[2]["t_checkpoint"] > 0,
+             f"no step-2 checkpoint: {cuts}")
+        step2 = ckpt_lib.checkpoint_path(str(ck), 3)
+        rec, res2 = timed("motifs_resumed_step2",
+                          lambda: resume(mico, motifs(), step2))
+        need(res2.patterns == motifs5.patterns,
+             "motifs resumed from the step-2 cut differ from phase 5's")
+        need([s.n_children for s in res2.stats.steps]
+             == [s.n_children for s in res.stats.steps],
+             "the resumed run's children per step differ")
+        shutil.rmtree(ck)
+        killed = work / "killed"
+        t0 = time.perf_counter()
+        proc = child(EXIT_CHILD, killed)
+        need(proc.returncode == faults.EXIT_CODE,
+             f"the child exited with {proc.returncode}, not "
+             f"{faults.EXIT_CODE}:\n{proc.stderr[-3000:]}")
+        latest = ckpt_lib.latest_checkpoint(str(killed))
+        need(latest is not None, "the killed child left no checkpoint")
+        out["exit_child"] = {"seconds": time.perf_counter() - t0,
+                             "exit_code": proc.returncode,
+                             "latest": Path(latest).name}
+        log(f"  the child exited with code {proc.returncode} at step 3's "
+            f"aggregation; newest cut {Path(latest).name}")
+        rec, res3 = timed("motifs_resumed_after_exit",
+                          lambda: resume(mico, motifs(), str(killed)))
+        need(res3.patterns == motifs5.patterns,
+             "motifs resumed after the child's exit differ from phase 5's")
+        shutil.rmtree(killed)
+        od = work / "odag"
+        odag = RunConfig(store="odag", checkpoint_dir=str(od))
+        rec, res4 = timed("motifs_odag_checkpointed",
+                          lambda: run(mico, motifs(), odag))
+        rec["checkpoints"] = {
+            s.step: Path(ckpt_lib.checkpoint_path(str(od), s.step + 1))
+            .stat().st_size for s in res4.stats.steps[:-1]}
+        rec, res5 = timed("motifs_odag_resumed_step2", lambda: resume(
+            mico, motifs(), ckpt_lib.checkpoint_path(str(od), 3),
+            RunConfig(store="odag")))
+        need(res4.patterns == res5.patterns == motifs5.patterns,
+             "ODAG-store checkpointed or resumed motifs differ")
+        shutil.rmtree(od)
+
+        # ---- 9c: supervised recovery -------------------------------------
+        log("[9c] run_supervised under injected faults: size-3 motifs on "
+            "mico_like(0.1), FSM on citeseer_like(1.0)")
+        clean_rec, clean = timed("motifs_supervised_clean",
+                                 lambda: run_supervised(mico, motifs()))
+        need(clean.patterns == motifs5.patterns,
+             "supervised clean motifs differ from phase 5's")
+        cases = [
+            ("crash_aggregate2", [("aggregate", 2, "crash")], [], {}),
+            ("oom_expand2", [("expand", 2, "oom")],
+             [f"budget_capped:{faults._BUDGET_SEED}"], {}),
+            ("corrupt_rollback", [("checkpoint", 2, "corrupt"),
+                                  ("aggregate", 3, "crash")], [],
+             {"rolled_back": 1, "resumed_step": 2}),
+        ]
+        recovered = {}
+        for label, specs, rungs, more in cases:
+            plan = FaultPlan(specs)
+            rec, res = timed(
+                f"motifs_supervised_{label}",
+                lambda: run_supervised(mico, motifs(),
+                                       RunConfig(faults=plan)),
+                clean=False)
+            rep = res.recovery
+            need(plan.fired == [tuple(x) for x in specs],
+                 f"{label}: fired {plan.fired}")
+            need(res.patterns == clean.patterns
+                 and [s.n_children for s in res.stats.steps]
+                 == [s.n_children for s in clean.stats.steps],
+                 f"{label}: the recovered run differs from the clean run")
+            need(rep is not None and rep["n_retries"] == 1
+                 and rep["degradations"] == rungs
+                 and all(rep[k] == v for k, v in more.items()),
+                 f"{label}: recovery report {rep}")
+            marked = [s for s in res.stats.steps if s.n_retries]
+            need([s.step for s in marked] == [2] and marked[0].t_recovery > 0,
+                 f"{label}: the retry was stamped on steps "
+                 f"{[s.step for s in marked]}")
+            need(rec["peak_bytes"] <= 1.1 * clean_rec["peak_bytes"],
+                 f"{label}: peak {rec['peak_bytes']} > 1.1 x the clean "
+                 f"run's {clean_rec['peak_bytes']}")
+            recovered[label] = {"t_recovery": marked[0].t_recovery,
+                                "report": rep,
+                                "peak_ratio": rec["peak_bytes"]
+                                / clean_rec["peak_bytes"]}
+        plan = FaultPlan([("aggregate", 2, "saturate")])
+        rec, res = timed("motifs_supervised_saturate", lambda: run_supervised(
+            mico, motifs(), RunConfig(faults=plan, device_aggregate=True)))
+        need(plan.fired == [("aggregate", 2, "saturate")]
+             and res.recovery is None and res.patterns == clean.patterns,
+             f"saturate: fired {plan.fired}, recovery {res.recovery}")
+        # on the card the ladder ends before the kernels' plain routes: a
+        # thrice-repeated expand crash takes fused_off (the CPU would go on
+        # to pallas_off) and the last retry runs on the kernels
+        plan = FaultPlan([("expand", 2, "crash", 3)])
+        rec, res = timed("motifs_supervised_expand_crash_x3", lambda: (
+            run_supervised(mico, motifs(), RunConfig(faults=plan))),
+            clean=False)
+        rep = res.recovery
+        need(len(plan.fired) == 3 and res.patterns == clean.patterns
+             and rep["n_retries"] == 3 and rep["degradations"] == ["fused_off"]
+             and all(res.stats.cost_model[k] is True for k in (
+                 "use_pallas", "compact_kernel", "aggregate_kernel")),
+             f"expand crash x3: fired {plan.fired}, recovery {rep}, table "
+             f"{res.stats.cost_model}")
+        need(rec["peak_bytes"] <= 1.1 * clean_rec["peak_bytes"],
+             f"expand crash x3: peak {rec['peak_bytes']} > 1.1 x the clean "
+             f"run's {clean_rec['peak_bytes']}")
+        recovered["expand_crash_x3"] = {
+            "t_recovery": next(s.t_recovery for s in res.stats.steps
+                               if s.n_retries),
+            "report": rep,
+            "peak_ratio": rec["peak_bytes"] / clean_rec["peak_bytes"]}
+        fclean_rec, fclean = timed("fsm_supervised_clean",
+                                   lambda: run_supervised(cite, fsm()))
+        plan = FaultPlan([("aggregate", 2, "crash")])
+        rec, res = timed("fsm_supervised_crash_aggregate2",
+                         lambda: run_supervised(cite, fsm(),
+                                                RunConfig(faults=plan)),
+                         clean=False)
+        need(res.patterns == fclean.patterns == fsm7b,
+             "the recovered FSM run differs from the clean run")
+        need(res.recovery["n_retries"] == 1
+             and res.recovery["degradations"] == [],
+             f"FSM recovery report {res.recovery}")
+        need(rec["peak_bytes"] <= 1.1 * fclean_rec["peak_bytes"],
+             f"FSM: peak {rec['peak_bytes']} > 1.1 x the clean run's "
+             f"{fclean_rec['peak_bytes']}")
+        recovered["fsm_crash_aggregate2"] = {
+            "t_recovery": next(s.t_recovery for s in res.stats.steps
+                               if s.n_retries),
+            "report": res.recovery,
+            "peak_ratio": rec["peak_bytes"] / fclean_rec["peak_bytes"]}
+        out["recovered"] = recovered
+        proc = child(OOM_CHILD, timeout=300)
+        need(proc.returncode == 0 and proc.stdout.split()[-1:] == ["oom"],
+             f"a real OOM was not classified 'oom': {proc.stdout} "
+             f"{proc.stderr[-2000:]}")
+        out["real_oom"] = proc.stdout.strip()
+        log(f"  a real allocation past a 1 % memory cap in a child: "
+            f"{out['real_oom']}")
+
+        # ---- 9d: tracing ---------------------------------------------------
+        log("[9d] tracing: size-3 motifs on mico_like(0.1)")
+        _, plain = timed("motifs_untraced", lambda: run(mico, motifs()))
+        rec, traced = timed("motifs_traced", lambda: run(
+            mico, motifs(), RunConfig(trace=True,
+                                      trace_dir=str(work / "trace"))))
+        doc = json.load(open(traced.trace_path))
+        problems = obs.validate_chrome_trace(doc)
+        cov = obs.phase_coverage(doc)
+        gauges = doc["otherData"]["metrics"]["gauges"]
+        rec.update(trace_events=len(doc["traceEvents"]), coverage=cov,
+                   device_bytes_in_use=gauges.get("device_bytes_in_use"))
+        log(f"    trace: {len(doc['traceEvents'])} events, problems "
+            f"{problems}, coverage {cov}, device bytes in use "
+            f"{gauges.get('device_bytes_in_use')}")
+        need(problems == [], f"the Chrome trace is malformed: {problems}")
+        need(cov["coverage"] >= 0.95, f"phase coverage {cov}")
+        need(traced.patterns == plain.patterns,
+             "traced motifs differ from untraced")
+        need([s.n_host_syncs for s in traced.stats.steps]
+             == [s.n_host_syncs for s in plain.stats.steps],
+             "tracing changed the host syncs per step")
+        need(gauges.get("device_bytes_in_use") is not None,
+             f"no device-memory gauge: {gauges}")
+        holder = {}
+
+        def synced():
+            # the gather probe and the expansion's fence belong to the
+            # fused pipeline (the chunk loop carries nothing to fence),
+            # which a calibrated table may not pick
+            holder["rt"] = SuperstepRuntime(mico, motifs(), RunConfig(
+                graph_partition=PARTS, trace=True, trace_sync=True,
+                async_chunks=True))
+            return holder["rt"].run()
+
+        rec, part = timed("motifs_partitioned_trace_sync", synced)
+        fences = holder.pop("rt").observer.tracer.n_fences
+        rec["n_fences"] = fences
+        need(part.patterns == plain.patterns,
+             "partitioned trace_sync motifs differ")
+        need(any(s.t_gather > 0 for s in part.stats.steps) and fences > 0,
+             f"trace_sync: t_gather {[s.t_gather for s in part.stats.steps]}"
+             f", {fences} fences")
+        need(rec["launches"].get("gather_rows", 0) > 0,
+             "gather_rows never launched in the partitioned run")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            _, logged = timed("motifs_log_every", lambda: run(
+                mico, motifs(), RunConfig(log_every=1)))
+        lines = buf.getvalue().splitlines()
+        for line in lines:
+            log(line)
+        steps = [ln for ln in lines if ln.startswith("[obs] step=")]
+        need(len(steps) == len(logged.stats.steps),
+             f"{len(steps)} progress lines for {len(logged.stats.steps)} "
+             "supersteps")
+
+        # ---- no run outside the injected faults recovered ------------------
+        need(retries == ["crash", "oom", "crash"] + ["crash"] * 3
+             + ["crash"],
+             f"the supervisor retried {retries}")
+        stray = [label for label, res in clean_results
+                 if res.recovery is not None]
+        need(not stray, f"runs without a fault have a recovery report: "
+             f"{stray}")
+    finally:
+        loop._release_attempt = release
+        shutil.rmtree(work, ignore_errors=True)
+    out["runs"] = runs
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 9: {out['seconds']:.1f} s")
+    return totals, out
 
 
 # ---------------------------------------------------------------------------
@@ -2651,33 +3187,35 @@ def main(argv=None) -> int:
     # ---- 4. card port vs CPU port ----------------------------------------
     log("[4] card port vs CPU port on mico_like(0.005) and (0.001)")
     small = card_vs_cpu(torch, run, G.mico_like, [
-        ("motifs", 0.005, MotifsApp(max_size=3), RunConfig()),
-        ("cliques", 0.005, CliquesApp(max_size=4), RunConfig()),
+        ("motifs", 0.005, MotifsApp(max_size=3), RunConfig(cost_model="off")),
+        ("cliques", 0.005, CliquesApp(max_size=4),
+         RunConfig(cost_model="off")),
         ("motifs_force_device", 0.005, MotifsApp(max_size=3),
          RunConfig(cost_model="force_device")),
         ("motifs_host_async", 0.005, MotifsApp(max_size=3),
-         RunConfig(canonical_placement="host_async")),
+         RunConfig(cost_model="off", canonical_placement="host_async")),
         ("motifs4_force_device", 0.001, MotifsApp(max_size=4),
          RunConfig(cost_model="force_device")),
         ("motifs_partitioned", 0.005, MotifsApp(max_size=3),
-         RunConfig(graph_partition=PARTS)),
+         RunConfig(cost_model="off", graph_partition=PARTS)),
         ("cliques_partitioned", 0.005, CliquesApp(max_size=4),
-         RunConfig(graph_partition=PARTS)),
+         RunConfig(cost_model="off", graph_partition=PARTS)),
     ])
 
     # ---- 5. the main path --------------------------------------------------
     log("[5] main path on mico_like(0.1) through repro_torch.core.run")
     totals, runs, level2_table, raw_runs = main_path(
         torch, np, run, RunConfig, G, build, [
-        ("motifs_unfused", MotifsApp(max_size=3), RunConfig()),
-        ("motifs_fused", MotifsApp(max_size=3), RunConfig(fused_expand=True)),
-        ("cliques", CliquesApp(max_size=4), RunConfig()),
+        ("motifs_unfused", MotifsApp(max_size=3), RunConfig(cost_model="off")),
+        ("motifs_fused", MotifsApp(max_size=3),
+         RunConfig(cost_model="off", fused_expand=True)),
+        ("cliques", CliquesApp(max_size=4), RunConfig(cost_model="off")),
         ("motifs_force_device", MotifsApp(max_size=3),
          RunConfig(cost_model="force_device")),
         ("motifs_partitioned", MotifsApp(max_size=3),
-         RunConfig(graph_partition=PARTS)),
+         RunConfig(cost_model="off", graph_partition=PARTS)),
         ("cliques_partitioned", CliquesApp(max_size=4),
-         RunConfig(graph_partition=PARTS)),
+         RunConfig(cost_model="off", graph_partition=PARTS)),
     ])
     row, extra["level2_step3"] = refine_main_table(torch, level2_table)
     rebin = level2_rebin_input(torch, level2_table)
@@ -2717,14 +3255,23 @@ def main(argv=None) -> int:
     extra["stores_card_vs_cpu"] = store_card_vs_cpu(torch, run, RunConfig, G)
     store_totals, extra["stores_main_path"] = store_main_path(
         torch, np, run, RunConfig, G, build, raw_runs)
+    motifs5 = raw_runs["motifs"]
     del raw_runs
     log(f"[8c] the paper's FSM graph at its depth: citeseer_like(1.0), "
         f"{dict(FSM_MAIN_APP, max_size=4)}, budget {FSM_DEPTH_BUDGET} B, "
         "then one wave")
     extra["fsm_depth"] = fsm_depth_runs(torch, run, RunConfig, G, build,
                                         store_totals, fewer_edges=fsm_3edges)
-    del fsm_3edges
     for name, v in store_totals.items():
+        totals[name] += v
+
+    # ---- 9. the runtime's control plane --------------------------------------
+    log("[9] the runtime's control plane: cost model, checkpoints, "
+        "supervised recovery, tracing")
+    control_totals, extra["control_plane"] = control_plane_phase(
+        torch, np, G, build, motifs5, fsm_3edges)
+    del motifs5, fsm_3edges
+    for name, v in control_totals.items():
         totals[name] += v
     for row in kernels:
         row["launches"] = totals[row["name"]]

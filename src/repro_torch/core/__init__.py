@@ -5,15 +5,24 @@ from repro_torch.core.engine import EngineConfig, MiningResult, run
 from repro_torch.core.graph import (
     DeviceGraph, Graph, PartitionedGraph, to_device, to_partitioned,
 )
-from repro_torch.core.runtime import RunConfig, SuperstepRuntime
+from repro_torch.core.runtime import (
+    FaultPlan, FaultSpec, RunConfig, SuperstepRuntime, checkpoint, faults,
+    resume, run_supervised,
+)
 
 __all__ = [
     "MiningApp",
     "EngineConfig",
+    "FaultPlan",
+    "FaultSpec",
     "MiningResult",
     "RunConfig",
     "SuperstepRuntime",
+    "checkpoint",
+    "faults",
+    "resume",
     "run",
+    "run_supervised",
     "DeviceGraph",
     "Graph",
     "PartitionedGraph",

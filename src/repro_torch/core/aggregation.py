@@ -566,12 +566,21 @@ def device_level2(u, c, uv, cap: int, n_final: int, quick_codes: np.ndarray,
     overflow ``cap`` (Pc ≤ Q ≤ cap). ``with_domains`` adds the orbit pass
     over the canonical table and brings its (Pc, 8) orbits across.
 
+    The distinct codes are the first ``n_final`` rows of ``u`` (``uv``
+    marks them), so the program runs on the table's own pow2 bucket, not
+    at ``cap``: after a wave re-bin ``cap`` is ``next_pow2`` of the wave's
+    rows (2^28 for 2.6e8 FSM embeddings, where the refine's sigma alone
+    asked for 8 GiB). The reference runs at ``cap``; every output and
+    count is the same, only the padding differs.
+
     Returns ``(table, counts (Pc,) int64, bytes_to_host)``.
     """
+    q = int(n_final)
+    cap = min(cap, 1 << max(0, (q - 1).bit_length()))
+    u, c, uv = u[:cap], c[:cap], uv[:cap]
     canon_d, sigma_d, cu_d, cc_d, q2c_d, cn_d, rep_d = _level2_program(
         u, c, uv, cap, nvs, with_domains, use_kernel, method
     )
-    q = int(n_final)
     pc = int(cn_d)
     sigma = sigma_d[:q].cpu().numpy().astype(np.int32)
     q2c = q2c_d[:q].cpu().numpy().astype(np.int32)

@@ -1,55 +1,59 @@
-"""Minimal observability for the port's superstep runtime.
+"""Structured observability for the superstep runtime (DESIGN.md §12),
+port of ``repro.core.obs``.
 
-``count`` / ``set_stat`` are the only write path of the ``StepStats``
-counters, as in ``repro.core.obs``. Spans, device annotations and fences
-are no-ops, and a run that asks for tracing raises: the tracer, the
-metrics registry and the exporters are not ported yet (ROADMAP.md).
+The façade every runtime layer imports as ``from repro_torch.core import
+obs``:
+
+  * ``obs.span("expand", step=k, ...)`` — nested host phase spans
+    (a shared nullcontext when no tracer is installed: no allocation, no
+    device sync on the disabled path);
+  * ``obs.count(st, "bytes_to_host", n)`` / ``obs.set_stat(...)`` — THE
+    write path for StepStats counters, mirrored into the metrics registry
+    while observing;
+  * ``obs.fence(*trees)`` — blocking phase boundaries
+    (``torch.cuda.synchronize``), ONLY under ``trace_sync=True``;
+  * ``obs.annotate("fused_chunk")`` — a ``torch.profiler.record_function``
+    range while traced;
+  * :class:`RunObserver` — the per-run bundle the loop drives (install,
+    per-step counters + progress log, Chrome-trace/JSONL export).
+
+Knobs: ``RunConfig.trace`` / ``trace_dir`` / ``trace_sync`` /
+``log_every``.
 """
-from __future__ import annotations
-
-import contextlib
-
-#: shared reusable no-op context
-_NULL = contextlib.nullcontext()
-
-
-def count(st, name: str, value) -> None:
-    """THE counter write path: ``st.<name> += value``."""
-    setattr(st, name, getattr(st, name) + value)
-
-
-def set_stat(st, name: str, value) -> None:
-    """Assignment-style stats (``st.<name> = value``)."""
-    setattr(st, name, value)
-
-
-def span(name: str, **attrs):
-    return _NULL
-
-
-def annotate(name: str):
-    return _NULL
-
-
-def fence(*trees) -> None:
-    return None
-
-
-class RunObserver:
-    """Per-run observability bundle; raises for what is not ported."""
-
-    def __init__(self, config, backend_name: str = "") -> None:
-        if config.trace or config.log_every:
-            raise NotImplementedError(
-                "trace/log_every: the port's tracer is not ported yet; see "
-                "ROADMAP.md"
-            )
-
-    def start(self) -> None:
-        pass
-
-    def step_done(self, st) -> None:
-        pass
-
-    def finish(self, wall_time: float = 0.0, aborted: bool = False):
-        return None
+from repro_torch.core.obs.export import (        # noqa: F401
+    PHASES,
+    RunObserver,
+    chrome_trace_events,
+    phase_coverage,
+    step_log_line,
+    validate_chrome_trace,
+    write_chrome_trace,
+)
+from repro_torch.core.obs.metrics import (       # noqa: F401
+    MetricsRegistry,
+    count,
+    gauge,
+    sample_device_memory,
+    set_stat,
+)
+from repro_torch.core.obs.metrics import (       # noqa: F401
+    current as current_metrics,
+)
+from repro_torch.core.obs.metrics import (       # noqa: F401
+    install as install_metrics,
+)
+from repro_torch.core.obs.tracer import (        # noqa: F401
+    Span,
+    Tracer,
+    annotate,
+    fence,
+    probe_time,
+    span,
+    sync_active,
+)
+from repro_torch.core.obs.tracer import (        # noqa: F401
+    current as current_tracer,
+)
+from repro_torch.core.obs.tracer import (        # noqa: F401
+    install as install_tracer,
+)

@@ -37,7 +37,7 @@ class ExecutionBackend(abc.ABC):
         from repro_torch.core.runtime import costmodel
 
         config, self.decisions = costmodel.resolve(config, g, app, self.name)
-        config.check_ported()
+        config.validate()
         self.g = g
         self.app = app
         self.config = config

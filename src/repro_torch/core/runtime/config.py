@@ -2,11 +2,9 @@
 of ``repro.core.runtime.config``.
 
 Same knobs and defaults as the JAX package's ``RunConfig``, less what has
-no meaning here (``pallas_interpret``) or belongs to parts not ported yet
-(the distributed backend, calibration, the supervisor). Knobs whose paths
-are not ported keep their field so a config reads the same in both
-packages; a run that sets them raises ``NotImplementedError``
-(:meth:`RunConfig.check_ported`).
+no meaning here (``pallas_interpret``) or belongs to the distributed
+backend, which is not ported yet (``axes``, ``halo``,
+``naive_aggregation``; ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -71,10 +69,21 @@ class RunConfig:
     #: LRU cap of the process-wide quick->canonical memo
     #: (``pattern.set_memo_cap``); None keeps the default.
     canonical_memo_cap: Optional[int] = None
-    #: how the None/auto knobs resolve: "auto" and "off" give the static
-    #: table (calibration is not ported yet, so "auto" resolves like it);
-    #: "force_device" / "force_host" pin the placement extremes.
+    #: how the None/auto knobs resolve (DESIGN.md §14): "auto" runs the
+    #: pilot-calibrated cost model on graphs of at least
+    #: ``cost_model_min_edges`` edges (probe timings pick the fastest
+    #: implementation per phase, cached per (device type, app, graph,
+    #: config) signature) and the static table below that; "off" pins the
+    #: static table; "force_device" / "force_host" pin the placement
+    #: extremes.
     cost_model: str = "auto"
+    #: directory the calibrated decision tables persist in (JSON, one file
+    #: per signature), so a fresh process skips the pilot. None -> the
+    #: table is cached process-wide only.
+    cost_model_dir: Optional[str] = None
+    #: graphs with fewer edges than this resolve through the static table
+    #: without calibrating.
+    cost_model_min_edges: int = 2048
     #: starting capacity of the cross-batch level-1 merge table, grown pow2
     #: on overflow.
     agg_qcap: int = 4096
@@ -87,30 +96,61 @@ class RunConfig:
     #: partition boundary placement: "degree" balances adjacency payload
     #: per shard, "vertex" splits the id space evenly.
     partition_balance: str = "degree"
-    #: superstep checkpoints (not ported: must stay None).
+    #: directory for superstep-granular checkpoints (DESIGN.md §9): the
+    #: runtime writes {sealed store payload, stats, patterns, superstep
+    #: cursor, app + graph fingerprints} at the seal boundary and
+    #: ``runtime.resume`` continues from the latest one.
     checkpoint_dir: Optional[str] = None
-    #: tracing / progress log (not ported: must stay off).
+    #: write a checkpoint every this-many supersteps (1 = every seal).
+    checkpoint_every: int = 1
+    #: collect host phase spans + metrics for this run (DESIGN.md §12);
+    #: False adds no device sync and allocates no span.
     trace: bool = False
+    #: directory the traced run exports to: a Chrome trace
+    #: (``run-<pid>-<seq>.trace.json``) and a JSONL event stream
+    #: (``.events.jsonl``). None keeps the spans in memory
+    #: (``SuperstepRuntime.observer``).
+    trace_dir: Optional[str] = None
+    #: blocking phase boundaries (``torch.cuda.synchronize``): host phase
+    #: laps measure device completion, and the partitioned layout's tile
+    #: gather is probe-timed into ``StepStats.t_gather``. Diagnostic
+    #: mode; never implied by ``trace`` alone.
+    trace_sync: bool = False
+    #: print one structured progress line every this-many supersteps
+    #: (0 = silent), with or without ``trace``.
     log_every: int = 0
-    #: fault-injection plan (not ported: must stay None).
+    #: deterministic fault-injection plan (DESIGN.md §13): a
+    #: ``runtime.faults.FaultPlan`` tripped at the loop's phase boundaries.
+    #: None costs one attribute read a phase.
     faults: Optional[object] = None
+    #: retry budget of ``run_supervised``: failed attempts restart from the
+    #: last valid checkpoint this many times before the failure re-raises.
+    max_retries: int = 3
+    #: base seconds of the supervisor's exponential backoff: retry k
+    #: sleeps ``retry_backoff * 2**(k-1)``.
+    retry_backoff: float = 0.0
+    #: keep-last-K checkpoint retention (0 = keep every cut).
+    keep_checkpoints: int = 0
 
-    def check_ported(self) -> None:
-        """Raise ``NotImplementedError`` for a knob whose path the port
-        does not have yet (ROADMAP.md lists them in order)."""
-        unported = {
-            "checkpoint_dir": self.checkpoint_dir is not None,
-            "faults": self.faults is not None,
-        }
-        # unknown values raise ValueError
+    def validate(self) -> None:
+        """Raise ``ValueError`` for an unknown knob value."""
         self.resolve_canonical_placement()
         self.resolve_aggregate_bin()
-        bad = [k for k, v in unported.items() if v]
-        if bad:
-            raise NotImplementedError(
-                f"{', '.join(bad)}: not ported to repro_torch yet; see "
-                "ROADMAP.md"
-            )
+
+    # The kernel knobs' resolvers: an unset knob is on where the
+    # hand-written kernels run (``on_card``: the run's tensors are on a
+    # CUDA device), as ``costmodel.static_table`` sets it. The degradation
+    # ladder reads the user's unresolved config through them.
+    def resolve_use_pallas(self, on_card: bool) -> bool:
+        return on_card if self.use_pallas is None else self.use_pallas
+
+    def resolve_compact_kernel(self, on_card: bool) -> bool:
+        return on_card if self.compact_kernel is None else self.compact_kernel
+
+    def resolve_aggregate_kernel(self, on_card: bool) -> bool:
+        return (
+            on_card if self.aggregate_kernel is None else self.aggregate_kernel
+        )
 
     def resolve_aggregate_bin(self) -> str:
         got = "sort" if self.aggregate_bin is None else self.aggregate_bin

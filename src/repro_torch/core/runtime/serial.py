@@ -26,9 +26,10 @@ device through the canonical-refine kernel (``device``).
 
 The bound graph is a ``DeviceGraph`` or a ``PartitionedGraph``; with the
 latter every chunk program opens with the halo-tile gather
-(``explore.build_tile_view``). The reference's standalone gather probe for
-``StepStats.t_gather`` runs only under its ``trace_sync`` tracing mode,
-which is not ported, so ``t_gather`` stays 0.0 here as it does there.
+(``explore.build_tile_view``). Under ``trace_sync`` a standalone gather
+probe per chunk times that stage into ``StepStats.t_gather``
+(``obs.probe_time``); otherwise it rides ``t_expand`` and ``t_gather``
+stays 0.0.
 """
 from __future__ import annotations
 
@@ -38,8 +39,10 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from repro_torch.core import aggregation, obs, pattern as pattern_lib
+from repro_torch.core import aggregation, explore, obs, pattern as pattern_lib
 from repro_torch.core.api import MiningApp
+from repro_torch.core.graph import PartitionedGraph
+from repro_torch.core.runtime import faults as faults_lib
 from repro_torch.core.runtime import programs
 from repro_torch.core.runtime.backend import ExecutionBackend
 from repro_torch.core.runtime.config import next_pow2
@@ -108,6 +111,17 @@ class SerialBackend(ExecutionBackend):
         self._lvl1 = None
         self._table = None
         return store
+
+    def _gather_probe(self, members, n_valid):
+        """The tile-gather stage alone, for ``StepStats.t_gather``
+        (DESIGN.md §12): ``build_tile_view`` runs INSIDE the chunk program,
+        so its share of ``t_expand`` is only separable by a probe, paid
+        only under ``trace_sync=True`` (the diagnostic mode)."""
+        return explore.build_tile_view(
+            self.g, members, n_valid, self.app.mode,
+            use_pallas=self._use_pallas,
+            compact_kernel=bool(self.config.compact_kernel),
+        ).nbr_t
 
     def _make_expand_fn(self):
         config, app = self.config, self.app
@@ -196,6 +210,13 @@ class SerialBackend(ExecutionBackend):
         if lvl1 is None:
             lvl1 = self._fold_waves(blocks, size)
         res = lvl1.finish()
+        if res is not None and faults_lib.take(
+            self.config.faults, "aggregate", st.step, "saturate"
+        ):
+            # injected count saturation (DESIGN.md §13): discard the packed
+            # result exactly as a tripped saturation flag would, forcing
+            # the wide re-fold below — same recovery path, deterministic
+            res = None
         if res is None:
             # a chunk partial or eager compaction overflowed: re-fold from
             # the waves, and grow ``agg_qcap`` pow2-style from the
@@ -215,7 +236,8 @@ class SerialBackend(ExecutionBackend):
             # overlap: the loop joins the pending batch at the seal
             # boundary, after the next expansion has been enqueued;
             # async_level2_ok guarantees no pruning reads the table
-            pending = aggregation.submit_level2(uniq, counts_q)
+            with obs.annotate("canonicalize_submit"):
+                pending = aggregation.submit_level2(uniq, counts_q)
             self._lvl1, self._table = lvl1, None
             self._agg_blocks, self._agg_size = blocks, size
             return pending, None
@@ -438,6 +460,10 @@ class SerialBackend(ExecutionBackend):
         obs.count(st, "n_chunks", len(chunks))
         if not chunks:
             return None, cap
+        if isinstance(g, PartitionedGraph) and obs.sync_active():
+            for ch in chunks:
+                obs.count(st, "t_gather",
+                          obs.probe_time(self._gather_probe, ch[4], ch[5]))
 
         # ---- pilot: sync 1 calibrates the capacity bucket for the step --
         _, _, cb0, bucket0, chunk0, n_valid0 = chunks[0]

@@ -5,7 +5,9 @@ into one shared library with a plain C interface, bound with ``ctypes``:
 one ``nvcc -c`` per source, all started together, then one link. The build
 runs at first use, into ``_build/<hash>/`` beside this file (listed in
 ``.gitignore``), keyed by a hash of the sources and flags, so a checkout
-builds once per source change. A failed build raises; nothing falls back.
+builds once per source change. A failed build raises
+:class:`KernelCompileError`; nothing falls back, and neither the cost model
+nor the supervisor retries past it (``runtime/faults.classify_failure``).
 
 Each wrapper that launches a kernel adds one to its entry in
 :data:`LAUNCHES` at the launch and nowhere else, so a run can show which
@@ -72,6 +74,11 @@ _SIGNATURES = {
                               _I, _P],
 }
 
+class KernelCompileError(RuntimeError):
+    """The kernels could not be built: no ``nvcc``, or a compile or the
+    link failed."""
+
+
 _LIB: Optional[ctypes.CDLL] = None
 #: seconds the last build in this process took (0.0 when it was cached).
 last_build_seconds = 0.0
@@ -102,7 +109,7 @@ def nvcc_path() -> str:
     default = Path("/usr/local/cuda/bin/nvcc")
     if default.exists():
         return str(default)
-    raise RuntimeError(
+    raise KernelCompileError(
         "nvcc not found (set CUDA_HOME): the port's CUDA kernels are built "
         "from source at first use"
     )
@@ -119,8 +126,8 @@ def source_hash() -> str:
 
 def build() -> Path:
     """Compile the kernels unless this source hash is already built;
-    returns the library path. Raises ``RuntimeError`` with the compiler's
-    output when a compile or the link fails."""
+    returns the library path. Raises :class:`KernelCompileError` with the
+    compiler's output when a compile or the link fails."""
     global last_build_seconds
     out_dir = BUILD_ROOT / source_hash()
     lib = out_dir / LIB_NAME
@@ -154,7 +161,7 @@ def build() -> Path:
             failed.append("link")
     (work / "build.log").write_text("\n".join(log))
     if failed:
-        raise RuntimeError(
+        raise KernelCompileError(
             f"kernel build failed ({', '.join(failed)}):\n" + "\n".join(log)
         )
     out_dir.parent.mkdir(parents=True, exist_ok=True)

@@ -8,6 +8,7 @@ port is installed:
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 """
+import dataclasses
 import math
 
 import numpy as np
@@ -170,7 +171,10 @@ def test_expand_kernel_matches_plain_version(cuda_device, k, d, n):
 @pytest.mark.parametrize("fused", [False, True])
 def test_card_run_equals_cpu_run(cuda_device, app, fused):
     g = TG.mico_like(0.003)
-    cfg_kw = dict(chunk_size=256, initial_capacity=64, fused_expand=fused)
+    # cost_model="off": a graph of 2,048 edges or more calibrates under
+    # "auto", and the card and the CPU may then place phases differently
+    cfg_kw = dict(chunk_size=256, initial_capacity=64, fused_expand=fused,
+                  cost_model="off")
     gpu = run(g, app, RunConfig(**cfg_kw), device=cuda_device)
     cpu = run(g, app, RunConfig(**cfg_kw), device="cpu")
     assert gpu.patterns == cpu.patterns
@@ -497,7 +501,8 @@ def test_partition_kernels_match_plain_versions(cuda_device):
 @pytest.mark.parametrize("app", [MotifsApp(max_size=3), CliquesApp(max_size=4)])
 def test_partitioned_card_run_equals_cpu_run(cuda_device, app):
     g = TG.mico_like(0.003)
-    cfg = RunConfig(graph_partition=4, chunk_size=256, initial_capacity=64)
+    cfg = RunConfig(graph_partition=4, chunk_size=256, initial_capacity=64,
+                    cost_model="off")   # as in test_card_run_equals_cpu_run
     before = dict(build.LAUNCHES)
     gpu = run(g, app, cfg, device=cuda_device)
     cpu = run(g, app, cfg, device="cpu")
@@ -608,7 +613,8 @@ def test_store_card_run_equals_cpu_run(cuda_device, app, knobs):
     included)."""
     g = (TG.citeseer_like(0.1) if isinstance(app, FSMApp)
          else TG.mico_like(0.002))
-    cfg = RunConfig(chunk_size=512, **knobs)
+    cfg = RunConfig(chunk_size=512, cost_model="off",  # 2,160 edges
+                    **knobs)
     gpu = run(g, app, cfg, device=cuda_device)
     cpu = run(g, app, cfg, device="cpu")
     assert gpu.patterns == cpu.patterns
@@ -850,3 +856,31 @@ def test_card_model_matches_cpu_model(cuda_device, name):
     assert ec.max() <= 2 * eb.max(), (ec.max(), eb.max())
     assert build.LAUNCHES["flash_attention"] == before["flash_attention"] + 4
     assert build.LAUNCHES["rmsnorm"] == before["rmsnorm"] + 9
+
+
+def test_card_calibration_keeps_the_kernels(cuda_device, monkeypatch):
+    """On the card the plain versions are never the main path's: the
+    kernel knobs stay on, probe 1 (which would decide nothing) is skipped
+    and probe 2 chooses between the two bins on their kernels (probe
+    constants shrunk as ``test_torch_costmodel.py`` shrinks them)."""
+    from repro_torch.core.runtime import costmodel
+
+    monkeypatch.setattr(costmodel, "PROBE_CHUNK_ROWS", 32)
+    monkeypatch.setattr(costmodel, "PROBE_BIN_ROWS", 2048)
+    monkeypatch.setattr(costmodel, "PROBE_OUT_CAP", 1 << 10)
+    costmodel.clear_cache()
+    g0 = TG.random_labeled(120, 600, n_labels=2, seed=22)
+    g = TG.to_device(g0, cuda_device)
+    cfg = RunConfig(cost_model_min_edges=100)
+    _, t = costmodel.resolve(cfg, g, MotifsApp(max_size=3), "serial")
+    assert t.source == "calibrated" and t.platform == "cuda"
+    assert (t.use_pallas, t.compact_kernel, t.aggregate_kernel) == \
+        (True, True, True)
+    assert [k for k in t.timings if k.startswith("expand.")] == []
+    assert sorted(k for k in t.timings if k.startswith("bin.")) == \
+        ["bin.radix.kernel", "bin.sort.kernel"]
+    res = run(g0, MotifsApp(max_size=3), cfg, device=cuda_device)
+    ref = run(g0, MotifsApp(max_size=3),
+              dataclasses.replace(cfg, cost_model="off"), device="cpu")
+    assert res.patterns == ref.patterns
+    costmodel.clear_cache()

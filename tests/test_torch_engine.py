@@ -12,7 +12,7 @@ import torch
 from repro.core import EngineConfig, graph as JG
 from repro.core.apps import CliquesApp as JCliques, MotifsApp as JMotifs
 from repro.core.apps.cliques import maximal_cliques as jmaximal
-from repro_torch.core import RunConfig, graph as TG, run
+from repro_torch.core import FaultPlan, RunConfig, graph as TG, run
 from repro_torch.core.apps import CliquesApp, MotifsApp
 from repro_torch.core.apps.cliques import maximal_cliques
 from torch_parity import KERNELS_ON, assert_same_run, graph_pair, jax_run
@@ -58,8 +58,10 @@ def test_labeled_mico_motifs_cross_agg_qcap():
     from the frontier wave — in both packages, with the same counters."""
     jg, tg = graph_pair(lambda G: G.mico_like(0.005))
     jres = jax_run(jg, JMotifs(max_size=3), EngineConfig(cost_model="off"))
-    tres = run(tg, MotifsApp(max_size=3), RunConfig(**KERNELS_ON),
-               device="cpu")
+    # 5,401 edges: "auto" would calibrate, and the counters follow the
+    # placement it picks
+    tres = run(tg, MotifsApp(max_size=3),
+               RunConfig(cost_model="off", **KERNELS_ON), device="cpu")
     assert_same_run(jres, tres)
     assert tres.stats.steps[-1].n_quick_patterns > 4096
 
@@ -74,12 +76,20 @@ def test_entry_points_need_a_card_unless_cpu_is_asked(monkeypatch):
 
 @pytest.mark.parametrize("knob", [
     dict(checkpoint_dir="ckpt"), dict(log_every=1),
-    dict(trace=True), dict(faults=object()),
+    dict(trace=True), dict(faults=()),
 ])
-def test_unported_paths_raise(knob):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run(TG.triangle_plus_tail(), MotifsApp(max_size=3), RunConfig(**knob),
-            device="cpu")
+def test_unported_paths_raise(knob, tmp_path):
+    """The knobs whose paths were not ported raised ``NotImplementedError``;
+    checkpoints, the progress log, tracing and fault plans are ported now,
+    so each runs and gives the default run's patterns."""
+    if "checkpoint_dir" in knob:
+        knob = dict(checkpoint_dir=str(tmp_path / knob["checkpoint_dir"]))
+    if "faults" in knob:
+        knob = dict(faults=FaultPlan(knob["faults"]))
+    g = TG.triangle_plus_tail()
+    res = run(g, MotifsApp(max_size=3), RunConfig(**knob), device="cpu")
+    ref = run(g, MotifsApp(max_size=3), device="cpu")
+    assert res.patterns == ref.patterns
 
 
 def test_unknown_store_kind_raises():
