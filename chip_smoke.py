@@ -153,7 +153,35 @@ Phases, in order; any failure exits non-zero and prints no result:
         >= 0.95, the untraced run's host syncs per step, a device-memory
         gauge; ``trace_sync`` under ``graph_partition=4`` (``t_gather`` >
         0, fences counted); ``log_every=1`` one line a superstep;
-     and no run without an injected fault has a recovery report.
+     and no run without an injected fault has a recovery report;
+  10. the distributed backend (the shard-map superstep, paper §5.1-5.3)
+     through ``run_distributed`` on a mesh of four virtual workers on the
+     card (``make_mesh((4,), ("data",))``: the workers share the card, so
+     their collectives are copies within it), ``cost_model="off"``:
+     a. the card against the CPU port over four CPU workers (patterns,
+        embeddings, every per-step counter with ``collective_bytes``) on
+        ``mico_like(0.005)``: size-3 motifs and size-4 cliques whole-graph
+        and under ``graph_partition=4`` with both halo strategies, motifs
+        under ``store="odag"``; size-3 motifs with and without
+        ``naive_aggregation`` on ``mico_like(0.002)`` (Table 4's ratio of
+        collective bytes); FSM on ``citeseer_like(0.1)``, support 2, 3
+        edges;
+     b. the main path on ``mico_like(0.1)``: size-3 motifs whole-graph
+        (fused expansion, radix bin, device level 2), under
+        ``graph_partition=4`` (all-to-all halo) and under ``store="odag"``
+        (the dense exchange), size-4 cliques under ``graph_partition=4``,
+        each equal to phase 5's run (patterns, embeddings as sets), kernels
+        counted: per run the wall, the peak, the launches, per step the
+        phase times, syncs (<= 2), collective and halo bytes; the
+        partitioned motifs once more under ``trace_sync`` (the halo
+        exchange probed into ``t_exchange``, the syncs unchanged); every
+        kernel of the path launched; one superstep's expansion under sync
+        debug mode "error";
+     c. ``citeseer_like(1.0)`` FSM, support 25, 3 edges, under
+        ``store="odag"``: 7b's patterns;
+     d. a cut of the partitioned motifs written at four workers resumed at
+        three and five, and ``run_supervised`` under a ``halo`` fault (the
+        ``halo_gather`` rung), each equal to phase 5's run.
 
 Phases 4, 5, 7a-b and 8a-b pass ``cost_model="off"``: under ``"auto"`` a
 graph of 2,048 edges or more is calibrated, and the card and the CPU may
@@ -2420,6 +2448,415 @@ def control_plane_phase(torch, np, G, build, motifs5, fsm7b):
 
 
 # ---------------------------------------------------------------------------
+# Phase 10: the distributed backend (the shard-map superstep, paper §5.1-5.3)
+# ---------------------------------------------------------------------------
+
+SHARD_FIELDS = INT_FIELDS + ("collective_bytes",)
+#: 10a's graphs: the card-vs-CPU runs, and the naive aggregation's (it
+#: canonicalises every embedding on the host, ~0.1 ms a row, on both sides)
+SHARD_SMALL = 0.005
+SHARD_NAIVE = 0.002
+
+
+class HostAggregation:
+    """Counts the shard-map backend's host aggregation path
+    (``ShardMapBackend.quick_codes``: every embedding's codes to the
+    host), which a run under device aggregation must not take on the
+    card: an overflowing per-worker table is re-binned there."""
+
+    def __init__(self):
+        from repro_torch.core.runtime.shard import ShardMapBackend
+        self.cls, self.orig = ShardMapBackend, ShardMapBackend.quick_codes
+        self.calls = 0
+
+    def __enter__(self):
+        def counted(backend, blocks, size):
+            self.calls += 1
+            return self.orig(backend, blocks, size)
+
+        self.cls.quick_codes = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.quick_codes = self.orig
+
+
+def shard_counters(res):
+    return [{f: getattr(s, f) for f in SHARD_FIELDS} for s in res.stats.steps]
+
+
+def shard_run(torch, build, totals, label, g, app, cfg, device=None,
+              workers=PARTS, halo_graph=None):
+    """One ``run_distributed`` over ``workers`` virtual workers on the card
+    (or on ``device``), its kernels counted (zeroed just before, read just
+    after, added to ``totals``): wall, peak, per step the phase times,
+    syncs (<= 2), collective bytes and, given the run's partitioned graph
+    ``halo_graph`` (raw store), the halo bytes of each step's slices
+    (``shard.halo_bytes``, the count the backend adds to
+    ``collective_bytes``). On the card a run under device aggregation must
+    not take the host aggregation path. Returns (record, result)."""
+    from repro_torch.core.distributed import make_mesh, run_distributed
+    from repro_torch.core.runtime import shard
+
+    mesh = make_mesh((workers,), ("data",), device=device)
+    on_card = device is None
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+    with HostAggregation() as host:
+        build.reset_launches()
+        t0 = time.perf_counter()
+        res = run_distributed(g, app, mesh, cfg)
+        if on_card:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(build.LAUNCHES)
+    if not on_card:
+        return None, res
+    need(host.calls == 0 or cfg.naive_aggregation
+         or cfg.device_aggregate is False,
+         f"{label}: {host.calls} steps took the host aggregation path on "
+         "the card")
+    for name, v in launches.items():
+        totals[name] += v
+    peak = torch.cuda.max_memory_allocated()
+    steps = []
+    for s in res.stats.steps:
+        need(s.n_host_syncs <= 2,
+             f"{label} step {s.step}: {s.n_host_syncs} host syncs")
+        per = max(-(-s.n_frontier // workers), 1)
+        hb = (shard.halo_bytes(halo_graph, app.mode, cfg.resolve_halo(),
+                               per, s.size) * s.n_chunks
+              if halo_graph is not None else 0)
+        need(hb <= s.collective_bytes,
+             f"{label} step {s.step}: halo {hb} B past the collective's "
+             f"{s.collective_bytes} B")
+        steps.append({
+            "step": s.step, "frontier": s.n_frontier,
+            "children": s.n_children, "n_chunks": s.n_chunks,
+            "n_host_syncs": s.n_host_syncs,
+            "collective_bytes": s.collective_bytes, "halo_bytes": hb,
+            "bytes_to_host": s.bytes_to_host, "t_expand": s.t_expand,
+            "t_aggregate": s.t_aggregate, "t_canon": s.t_canon,
+            "t_storage": s.t_storage, "t_exchange": s.t_exchange})
+    rec = {"run": label, "workers": workers, "wall_s": wall,
+           "peak_bytes": peak, "launches": launches, "steps": steps,
+           "host_aggregation_steps": host.calls,
+           "patterns": len(res.patterns),
+           "collective_bytes": sum(s.collective_bytes
+                                   for s in res.stats.steps)}
+    log(f"  {label}: wall {wall:.3f} s, peak {peak / 2**30:.2f} GiB, "
+        f"{len(res.patterns)} patterns, collective "
+        f"{rec['collective_bytes']} B, launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    for st in steps:
+        log(f"    step {st['step']}: " + ", ".join(
+            f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
+            for k, v in st.items() if k != "step"))
+    return rec, res
+
+
+def same_sets(np, a, b) -> bool:
+    """Embeddings of two runs equal as sets, size by size."""
+    if sorted(a.embeddings) != sorted(b.embeddings):
+        return False
+    return all(
+        a.embeddings[k].shape == b.embeddings[k].shape and np.array_equal(
+            np.unique(a.embeddings[k], axis=0),
+            np.unique(b.embeddings[k], axis=0))
+        for k in b.embeddings)
+
+
+def shard_step_is_sync_free(torch, np, G):
+    """One superstep over the four workers under sync debug mode "error",
+    its inputs uploaded before and each control read made after: the
+    expansion (whole graph with the fused kernel, and partitioned with
+    the all-to-all halo exchange), then on the fused step's carried codes
+    the two-level aggregation collective (the local bins, the gathered
+    re-bin, the psum and the max of the local counts; sort and radix bin)
+    and the FSM domain scatter with its OR. None of them takes a host
+    sync."""
+    from repro_torch.core import aggregation
+    from repro_torch.core.apps import MotifsApp
+    from repro_torch.core.runtime import shard
+    from repro_torch.core.runtime.config import next_pow2
+
+    g = G.mico_like(0.1)
+    mesh = shard.make_mesh((PARTS,), ("data",))
+    devs = mesh.worker_devices(("data",))
+    app = MotifsApp(max_size=3)
+    padded, counts = shard.partition_frontier(
+        g.edges.astype(np.int32), PARTS)
+    members, n_valid = shard._upload_parts(padded, counts, 2, devs)
+    dg = G.to_device(g)
+    pg = G.to_partitioned(g, PARTS)
+    out_cap = 1 << 25        # the largest worker count is past 2^23
+
+    def no_sync(fn):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    out, carried = {}, None
+    for label, step, graphs, kw in (
+        ("whole_fused", shard.make_sharded_expand(
+            app, mesh, use_pallas=True, fused=True, compact_kernel=True,
+            with_patterns=True, with_local_verts=True),
+         [dg] * PARTS, {}),
+        ("partitioned_alltoall", shard.make_sharded_expand_partitioned(
+            app, mesh, halo="alltoall", use_pallas=True, compact_kernel=True,
+            with_patterns=True, with_local_verts=False),
+         [shard.local_shard(pg, s, d) for s, d in enumerate(devs)],
+         {"w": pg.n_parts, "rows": pg.tile_rows, "n": pg.n}),
+    ):
+        outs = no_sync(lambda: step(graphs, members, n_valid, out_cap, **kw))
+        cnt = torch.stack([c.to(torch.int64) for c in outs[1]]).cpu()
+        out[label] = [int(c) for c in cnt]
+        if carried is None:
+            carried = (outs[4], outs[5])
+        del outs
+    need(out["whole_fused"] == out["partitioned_alltoall"]
+         and sum(out["whole_fused"]) > 0
+         and max(out["whole_fused"]) <= out_cap,
+         f"sync-free shard steps disagree: {out}")
+    del pg, members, n_valid
+
+    codes, lv = carried
+    valid = [torch.arange(out_cap, device=d) < c
+             for c, d in zip(out["whole_fused"], devs)]
+    local_cap = 1 << 17
+    global_cap = PARTS * local_cap
+    agg = {}
+    for method in ("sort", "radix"):
+        qbin = shard.make_sharded_quick_bin(mesh, use_kernel=True,
+                                            bin_method=method)
+        gu, gcounts, gn, nmax, row_slot = no_sync(
+            lambda: qbin(codes, valid, local_cap, global_cap))
+        n, m = (int(x) for x in torch.stack([gn.to(torch.int64),
+                                             nmax]).cpu())
+        need(0 < n and m <= local_cap,
+             f"sync-free quick bin ({method}): {n} distinct, largest local "
+             f"table {m} of {local_cap}")
+        agg[method] = (n, int(gcounts.sum()))
+    need(agg["sort"] == agg["radix"]
+         and agg["sort"][1] == sum(out["whole_fused"]),
+         f"sync-free quick bins disagree: {agg}")
+    uniq, counts_q, _ = aggregation.drain_distinct(
+        gu, gcounts, n, w1_used=True, w2_used=True, fit32=False)
+    # the scatter reads sigma, not the orbits (the memo is warm from 10b)
+    table, _ = aggregation.finish_quick_level2(uniq, counts_q, False)
+    pc = len(table.canon_codes)
+    tables = {d: aggregation.level2_device_tables(table, global_cap, d)
+              for d in set(devs)}
+    scat = shard.make_sharded_domain_scatter(mesh)
+    bm = no_sync(lambda: scat(row_slot, lv, tables, next_pow2(pc), g.n))
+    n_bits = int(bm[:pc].sum())
+    need(n_bits > 0, "sync-free domain scatter set no bit")
+    out["quick_bin"] = {"distinct": agg["sort"][0], "canonical": pc,
+                        "domain_bits": n_bits}
+    del dg, codes, lv, valid, gu, gcounts, row_slot, bm, carried
+    torch.cuda.empty_cache()
+    return out
+
+
+def distributed_phase(torch, np, G, build, motifs5, cliques5, fsm7b):
+    """Phase 10: the shard-map backend through ``run_distributed`` on a
+    mesh of four virtual workers on the card (``make_mesh((4,),
+    ("data",))``; the workers share the card, so their collectives are
+    copies within it), ``cost_model="off"``. 10a the card against the CPU
+    (per-step counters, ``collective_bytes`` included); 10b the main path
+    on mico_like(0.1), each run equal to phase 5's; 10c 7b's FSM under the
+    dense ODAG exchange; 10d an elastic resume and a supervised ``halo``
+    fault. ``motifs5``/``cliques5`` are phase 5's runs, ``fsm7b`` 7b's
+    patterns."""
+    import dataclasses
+
+    from repro_torch.core import FaultPlan, RunConfig, resume, run_supervised
+    from repro_torch.core.apps import CliquesApp, FSMApp, MotifsApp
+    from repro_torch.core.runtime import ShardMapBackend, make_mesh
+    from repro_torch.core.runtime import checkpoint as ckpt_lib
+
+    t_phase = time.perf_counter()
+    totals = {name: 0 for name in build.LAUNCHES}
+    out = {"workers": PARTS}
+    off = RunConfig(cost_model="off")
+    motifs = lambda: MotifsApp(max_size=3)      # noqa: E731
+    cliques = lambda: CliquesApp(max_size=4)    # noqa: E731
+
+    # ---- 10a: card against CPU --------------------------------------------
+    log(f"[10a] shard-map backend, {PARTS} workers: card vs CPU on "
+        f"mico_like({SHARD_SMALL}) and citeseer_like({FSM_SMALL})")
+    small = {}
+    cases = [
+        ("motifs", SHARD_SMALL, motifs, {}),
+        ("cliques", SHARD_SMALL, cliques, {}),
+        ("motifs_alltoall", SHARD_SMALL, motifs,
+         dict(graph_partition=PARTS)),
+        ("motifs_gather", SHARD_SMALL, motifs,
+         dict(graph_partition=PARTS, halo="gather")),
+        ("cliques_alltoall", SHARD_SMALL, cliques,
+         dict(graph_partition=PARTS)),
+        ("cliques_gather", SHARD_SMALL, cliques,
+         dict(graph_partition=PARTS, halo="gather")),
+        ("motifs_odag", SHARD_SMALL, motifs, dict(store="odag")),
+        ("motifs_two_level", SHARD_NAIVE, motifs, {}),
+        ("motifs_naive", SHARD_NAIVE, motifs,
+         dict(naive_aggregation=True)),
+        ("fsm", None, lambda: FSMApp(**FSM_SMALL_APP), {}),
+    ]
+    for name, scale, mk, kw in cases:
+        g = (G.citeseer_like(FSM_SMALL) if scale is None
+             else G.mico_like(scale))
+        cfg = dataclasses.replace(off, **kw)
+        # the CPU run recovers from an overflowing per-worker table as the
+        # card does (a re-bin on the workers' devices, not the host path),
+        # so the two runs take one path and every counter compares
+        ShardMapBackend.refold_on_device = True
+        try:
+            _, cpu = shard_run(torch, build, totals, name, g, mk(), cfg,
+                               device="cpu")
+        finally:
+            ShardMapBackend.refold_on_device = None
+        _, gpu = shard_run(torch, build, {k: 0 for k in totals}, name, g,
+                           mk(), cfg)
+        need(cpu.patterns == gpu.patterns, f"10a {name}: patterns differ")
+        need(same_sets(np, cpu, gpu), f"10a {name}: embeddings differ")
+        need(shard_counters(cpu) == shard_counters(gpu),
+             f"10a {name}: step counters differ:\n{shard_counters(cpu)}\n"
+             f"{shard_counters(gpu)}")
+        need(sum(s.collective_bytes for s in gpu.stats.steps) > 0,
+             f"10a {name}: no collective bytes")
+        small[name] = {"patterns": len(gpu.patterns),
+                       "steps": shard_counters(gpu)}
+        log(f"  {name}: {len(gpu.patterns)} patterns, "
+            f"{[s.n_children for s in gpu.stats.steps]} children, "
+            f"collective {[s.collective_bytes for s in gpu.stats.steps]} B, "
+            "identical")
+    two = sum(s["collective_bytes"] for s in small["motifs_two_level"]["steps"])
+    naive = sum(s["collective_bytes"] for s in small["motifs_naive"]["steps"])
+    out["table4_collective_ratio"] = naive / two
+    log(f"  Table 4: naive / two-level collective bytes {naive} / {two} = "
+        f"{naive / two:.2f} (mico_like({SHARD_NAIVE}), size-3 motifs)")
+    out["card_vs_cpu"] = small
+
+    # ---- 10b: the main path --------------------------------------------------
+    log(f"[10b] main path on mico_like(0.1), {PARTS} workers on the card, "
+        f"default agg_qcap {off.agg_qcap}")
+    g = G.mico_like(0.1)
+    # the partitioned runs' graph, for their halo bytes
+    pg = G.to_partitioned(g, PARTS)
+    runs, results = [], {}
+    for label, mk, cfg in (
+        ("motifs_fused_device", motifs, dataclasses.replace(
+            off, fused_expand=True, aggregate_bin="radix",
+            canonical_placement="device")),
+        ("motifs_alltoall", motifs, dataclasses.replace(
+            off, graph_partition=PARTS)),
+        ("motifs_odag", motifs, dataclasses.replace(off, store="odag")),
+        ("cliques_alltoall", cliques, dataclasses.replace(
+            off, graph_partition=PARTS)),
+        # the halo exchange timed on its own (t_exchange) under trace_sync
+        ("motifs_alltoall_trace_sync", motifs, dataclasses.replace(
+            off, graph_partition=PARTS, trace=True, trace_sync=True)),
+    ):
+        rec, results[label] = shard_run(
+            torch, build, totals, label, g, mk(), cfg,
+            halo_graph=pg if cfg.graph_partition else None)
+        base = cliques5 if label.startswith("cliques") else motifs5
+        need(results[label].patterns == base.patterns,
+             f"10b {label}: patterns differ from phase 5's run")
+        need(same_sets(np, results[label], base),
+             f"10b {label}: embeddings differ from phase 5's run as sets")
+        need(rec["collective_bytes"] > 0, f"10b {label}: no collective bytes")
+        runs.append(rec)
+    on_path = ("canonical_check", "expand_canonical", "stream_compact",
+               "seg_unique", "radix_hist", "radix_scatter",
+               "canonical_refine", "canonical_check_tiles", "gather_rows")
+    for name in on_path:
+        need(sum(r["launches"].get(name, 0) for r in runs) > 0,
+             f"10b: {name} never launched under the shard-map backend")
+    synced = results["motifs_alltoall_trace_sync"]
+    need([s.n_host_syncs for s in synced.stats.steps]
+         == [s.n_host_syncs for s in results["motifs_alltoall"].stats.steps]
+         and any(s.t_exchange > 0 for s in synced.stats.steps),
+         "10b: trace_sync changed the syncs or timed no halo exchange")
+    del pg
+    out["main_path"] = runs
+    out["sync_free_step"] = shard_step_is_sync_free(torch, np, G)
+    log(f"  one superstep (the expansion whole graph fused and "
+        f"partitioned all-to-all, the two-level aggregation's quick bins "
+        f"and the domain scatter) ran under sync debug mode 'error': "
+        f"children per worker {out['sync_free_step']['whole_fused']}, "
+        f"{out['sync_free_step']['quick_bin']}")
+
+    # ---- 10c: FSM under the dense ODAG exchange ---------------------------
+    log(f"[10c] citeseer_like(1.0) FSM {FSM_MAIN_APP}, store='odag' (the "
+        f"dense exchange), {PARTS} workers")
+    rec, fsm = shard_run(torch, build, totals, "fsm_odag",
+                         G.citeseer_like(1.0), FSMApp(**FSM_MAIN_APP),
+                         dataclasses.replace(off, store="odag"))
+    need(fsm.patterns == fsm7b, "10c: FSM patterns differ from 7b's")
+    out["fsm_odag"] = rec
+
+    # ---- 10d: elastic resume and a supervised halo fault -------------------
+    log("[10d] partitioned motifs: a cut at 4 workers resumed at 3 and 5; "
+        "run_supervised under a halo fault")
+    clean = results["motifs_alltoall"]
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-shard-") as td:
+        cfg = dataclasses.replace(off, graph_partition=PARTS,
+                                  checkpoint_dir=td)
+        t0 = time.perf_counter()
+        cut_run = shard_run(torch, build, totals, "motifs_checkpointed", g,
+                            motifs(), cfg)[1]
+        need(cut_run.patterns == motifs5.patterns,
+             "10d: checkpointed run differs from phase 5's")
+        first = ckpt_lib.list_checkpoints(td)[0]
+        elastic, host = {}, HostAggregation()
+        for w in (PARTS - 1, PARTS + 1):
+            t1 = time.perf_counter()
+            with host:
+                res = resume(g, motifs(), first,
+                             dataclasses.replace(off, graph_partition=w),
+                             ShardMapBackend(make_mesh((w,), ("data",))))
+            torch.cuda.synchronize()
+            need(res.patterns == motifs5.patterns,
+                 f"10d: resumed at {w} workers differs from phase 5's")
+            elastic[w] = time.perf_counter() - t1
+    plan = FaultPlan([("halo", 2, "halo")])
+    t1 = time.perf_counter()
+    with host:
+        sup = run_supervised(g, motifs(), dataclasses.replace(
+            off, graph_partition=PARTS, faults=plan),
+            ShardMapBackend(make_mesh((PARTS,), ("data",))))
+    torch.cuda.synchronize()
+    t_sup = time.perf_counter() - t1
+    need(host.calls == 0, f"10d: {host.calls} steps took the host "
+         "aggregation path on the card")
+    need(sup.recovery is not None
+         and sup.recovery["degradations"] == ["halo_gather"],
+         f"10d: the halo fault's recovery {sup.recovery}")
+    need(sup.patterns == clean.patterns
+         and [s.n_children for s in sup.stats.steps]
+         == [s.n_children for s in clean.stats.steps],
+         "10d: supervised run differs from the clean partitioned run")
+    out["elastic_resume_s"] = elastic
+    out["supervised_halo"] = {"wall_s": t_sup, "recovery": sup.recovery}
+    log(f"  resumed at {PARTS - 1} / {PARTS + 1} workers in "
+        f"{elastic[PARTS - 1]:.3f} / {elastic[PARTS + 1]:.3f} s; supervised "
+        f"halo fault {t_sup:.3f} s, {sup.recovery}; all equal to phase 5 "
+        f"(elastic setup {time.perf_counter() - t0:.1f} s)")
+    build.reset_launches()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 10: {out['seconds']:.1f} s")
+    return totals, out
+
+
+# ---------------------------------------------------------------------------
 # Phase 6: the model zoo's dense decoder (qwen2.5-14b)
 # ---------------------------------------------------------------------------
 
@@ -3255,7 +3692,7 @@ def main(argv=None) -> int:
     extra["stores_card_vs_cpu"] = store_card_vs_cpu(torch, run, RunConfig, G)
     store_totals, extra["stores_main_path"] = store_main_path(
         torch, np, run, RunConfig, G, build, raw_runs)
-    motifs5 = raw_runs["motifs"]
+    motifs5, cliques5 = raw_runs["motifs"], raw_runs["cliques"]
     del raw_runs
     log(f"[8c] the paper's FSM graph at its depth: citeseer_like(1.0), "
         f"{dict(FSM_MAIN_APP, max_size=4)}, budget {FSM_DEPTH_BUDGET} B, "
@@ -3270,8 +3707,15 @@ def main(argv=None) -> int:
         "supervised recovery, tracing")
     control_totals, extra["control_plane"] = control_plane_phase(
         torch, np, G, build, motifs5, fsm_3edges)
-    del motifs5, fsm_3edges
     for name, v in control_totals.items():
+        totals[name] += v
+
+    # ---- 10. the distributed backend -----------------------------------------
+    log(f"[10] the shard-map backend: {PARTS} virtual workers on the card")
+    shard_totals, extra["distributed"] = distributed_phase(
+        torch, np, G, build, motifs5, cliques5, fsm_3edges)
+    del motifs5, cliques5, fsm_3edges
+    for name, v in shard_totals.items():
         totals[name] += v
     for row in kernels:
         row["launches"] = totals[row["name"]]

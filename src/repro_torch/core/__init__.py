@@ -6,20 +6,23 @@ from repro_torch.core.graph import (
     DeviceGraph, Graph, PartitionedGraph, to_device, to_partitioned,
 )
 from repro_torch.core.runtime import (
-    FaultPlan, FaultSpec, RunConfig, SuperstepRuntime, checkpoint, faults,
-    resume, run_supervised,
+    DeviceMesh, FaultPlan, FaultSpec, RunConfig, ShardMapBackend,
+    SuperstepRuntime, checkpoint, faults, make_mesh, resume, run_supervised,
 )
 
 __all__ = [
     "MiningApp",
+    "DeviceMesh",
     "EngineConfig",
     "FaultPlan",
     "FaultSpec",
     "MiningResult",
     "RunConfig",
+    "ShardMapBackend",
     "SuperstepRuntime",
     "checkpoint",
     "faults",
+    "make_mesh",
     "resume",
     "run",
     "run_supervised",

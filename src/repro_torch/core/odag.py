@@ -17,8 +17,12 @@ rather than the dense paths x domain block, in chunks of candidate pairs,
 and keeps rows in the reference's order: paths in order, each path's
 candidates in ascending domain order.
 
-The fixed-shape dense form of the distributed exchange (``DenseODAG``,
-``build_dense``, ``dense_to_ragged``) is not ported (ROADMAP.md).
+The fixed-shape dense form of the distributed exchange
+(:class:`DenseODAG`, :func:`build_dense`, :func:`dense_to_ragged`) is host
+numpy too, with the reference's packed LSB-first uint32 words: each
+worker's children become one dense ODAG over the full id space, the
+shard-map backend's seal ORs the workers' words (the §5.2 merge), and the
+merged form is unpacked once for extraction.
 """
 from __future__ import annotations
 
@@ -290,3 +294,67 @@ def extract(
         for key, v in acc.items():
             stats[key] = stats.get(key, 0) + v
     return out
+
+
+# ---------------------------------------------------------------------------
+# Fixed-shape dense ODAG: the distributed exchange format
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class DenseODAG:
+    """ODAG with domains and connectivity over the full id space: fixed
+    shapes, so the workers' forms merge with one bitwise OR (§5.2)."""
+
+    k: int
+    domain_bits: np.ndarray    # (k, W) uint32 — id-in-domain bitmaps
+    conn_bits: np.ndarray      # (k-1, N, W) uint32 — consecutive-level pairs
+
+    @property
+    def n_bytes(self) -> int:
+        return int(self.domain_bits.size + self.conn_bits.size) * 4
+
+    def merged(self, other: "DenseODAG") -> "DenseODAG":
+        """The OR of two workers' forms (the exchange's merge)."""
+        return DenseODAG(k=self.k,
+                         domain_bits=self.domain_bits | other.domain_bits,
+                         conn_bits=self.conn_bits | other.conn_bits)
+
+
+def build_dense(members: np.ndarray, n_vertices: int, k: int) -> DenseODAG:
+    """Scatter rows straight into the packed bitmaps (LSB-first words, as
+    ``core.bitset`` packs them): no unpacked (N, N) bool intermediate, so
+    the host holds only the O(k·N²/8) bytes of the exchange format."""
+    members = np.asarray(members)[:, :k]
+    w = (n_vertices + 31) // 32
+    dom = np.zeros((k, w), dtype=np.uint32)
+    conn = np.zeros((max(k - 1, 0), n_vertices, w), dtype=np.uint32)
+    for i in range(k):
+        v = members[:, i]
+        np.bitwise_or.at(dom[i], v // 32,
+                         np.uint32(1) << (v % 32).astype(np.uint32))
+        if i < k - 1:
+            nxt = members[:, i + 1]
+            np.bitwise_or.at(conn[i], (v, nxt // 32),
+                             np.uint32(1) << (nxt % 32).astype(np.uint32))
+    return DenseODAG(k=k, domain_bits=dom, conn_bits=conn)
+
+
+def dense_to_ragged(d: DenseODAG) -> ODAG:
+    """Unpack a (merged) :class:`DenseODAG` for extraction."""
+    dom_bits = np.asarray(d.domain_bits)
+    k, w = dom_bits.shape
+    n = d.conn_bits.shape[1] if d.k > 1 else w * 32
+    bits = np.unpackbits(
+        dom_bits.view(np.uint8).reshape(k, -1), axis=1, bitorder="little"
+    )[:, :n]
+    domains = [np.nonzero(bits[i])[0].astype(np.int32) for i in range(k)]
+    conn = []
+    for i in range(k - 1):
+        # only the domain's rows are unpacked: (D_i, N) bits, not (N, N)
+        rows = np.ascontiguousarray(d.conn_bits[i][domains[i]])
+        cbits = np.unpackbits(
+            rows.view(np.uint8).reshape(len(rows), -1),
+            axis=1, bitorder="little",
+        )[:, :n]
+        conn.append(cbits[:, domains[i + 1]].astype(bool))
+    return ODAG(k=k, domains=domains, conn=conn)

@@ -1,6 +1,7 @@
 """Unified superstep runtime (DESIGN.md §9), port of
 ``repro.core.runtime``: one :class:`SuperstepRuntime` BSP loop driven by the
-:class:`SerialBackend`, configured by one :class:`RunConfig`, with
+:class:`SerialBackend` or, over a mesh of workers, the
+:class:`ShardMapBackend`, configured by one :class:`RunConfig`, with
 superstep-granular checkpoint/resume (``checkpoint_dir=`` /
 :func:`resume`) and the fault-tolerant :func:`run_supervised`
 (DESIGN.md §13)."""
@@ -21,10 +22,14 @@ from repro_torch.core.runtime.loop import (
     MiningResult, SuperstepRuntime, resume, run_supervised,
 )
 from repro_torch.core.runtime.serial import SerialBackend
+from repro_torch.core.runtime.shard import (
+    DeviceMesh, ShardMapBackend, make_mesh,
+)
 
 __all__ = [
     "CheckpointCorruptError",
     "CheckpointState",
+    "DeviceMesh",
     "ExecutionBackend",
     "FaultPlan",
     "FaultSpec",
@@ -32,6 +37,7 @@ __all__ = [
     "MiningResult",
     "RunConfig",
     "SerialBackend",
+    "ShardMapBackend",
     "SuperstepRuntime",
     "app_fingerprint",
     "checkpoint",
@@ -39,6 +45,7 @@ __all__ = [
     "graph_fingerprint",
     "latest_checkpoint",
     "load_latest_valid",
+    "make_mesh",
     "next_pow2",
     "resume",
     "run_supervised",

@@ -4,8 +4,9 @@ of ``repro.core.runtime.backend``.
 One :class:`repro_torch.core.runtime.loop.SuperstepRuntime` loop drives a
 run; an :class:`ExecutionBackend` says how the sealed frontier is
 re-materialised, how level-1 aggregation is reduced, and how the expansion
-is dispatched. Only :class:`repro_torch.core.runtime.serial.SerialBackend`
-is ported (the shard-map backend waits, ROADMAP.md).
+is dispatched: :class:`repro_torch.core.runtime.serial.SerialBackend` on
+one device, :class:`repro_torch.core.runtime.shard.ShardMapBackend` on a
+mesh of workers.
 """
 from __future__ import annotations
 
@@ -27,6 +28,11 @@ class ExecutionBackend(abc.ABC):
     """One BSP superstep's execution strategy, behind the unified loop."""
 
     name: str = "base"
+
+    def home_device(self):
+        """Where the runtime uploads a host graph when the caller names no
+        device: None -> the current CUDA device (``resolve_device``)."""
+        return None
 
     def bind(self, g: DeviceGraph, app: MiningApp,
              config: RunConfig) -> FrontierStore:

@@ -1,17 +1,18 @@
 """The one run configuration of the superstep runtime (DESIGN.md §9), port
 of ``repro.core.runtime.config``.
 
-Same knobs and defaults as the JAX package's ``RunConfig``, less what has
-no meaning here (``pallas_interpret``) or belongs to the distributed
-backend, which is not ported yet (``axes``, ``halo``,
-``naive_aggregation``; ROADMAP.md).
+Same knobs and defaults as the JAX package's ``RunConfig``, less
+``pallas_interpret``, which has no meaning here. The serial backend ignores
+the shard-map backend's knobs (``halo``, ``axes``, ``naive_aggregation``).
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional
 
-from repro_torch.kernels.dispatch import resolve_canonical_placement
+from repro_torch.kernels.dispatch import (
+    resolve_canonical_placement, resolve_halo,
+)
 
 #: level-1 row-binning algorithms (``RunConfig.aggregate_bin``).
 AGGREGATE_BINS = ("sort", "radix")
@@ -96,6 +97,18 @@ class RunConfig:
     #: partition boundary placement: "degree" balances adjacency payload
     #: per shard, "vertex" splits the id space evenly.
     partition_balance: str = "degree"
+    #: halo-exchange strategy of the partitioned shard-map superstep:
+    #: "alltoall" (request/response all-to-all, O(halo) bytes a worker),
+    #: "gather" (all-gather of the shard tables, O(n)), or None/"auto" ->
+    #: "alltoall" (``kernels.dispatch.resolve_halo``).
+    halo: Optional[str] = None
+    #: mesh axes the shard-map backend shards the frontier over.
+    axes: tuple = ("data",)
+    #: disable two-level aggregation (the shard-map backend's baseline):
+    #: every worker ships all embeddings' quick codes and each embedding's
+    #: pattern is canonicalised on its own — the paper's Fig. 11 naive
+    #: scheme.
+    naive_aggregation: bool = False
     #: directory for superstep-granular checkpoints (DESIGN.md §9): the
     #: runtime writes {sealed store payload, stats, patterns, superstep
     #: cursor, app + graph fingerprints} at the seal boundary and
@@ -136,6 +149,7 @@ class RunConfig:
         """Raise ``ValueError`` for an unknown knob value."""
         self.resolve_canonical_placement()
         self.resolve_aggregate_bin()
+        self.resolve_halo()
 
     # The kernel knobs' resolvers: an unset knob is on where the
     # hand-written kernels run (``on_card``: the run's tensors are on a
@@ -161,3 +175,6 @@ class RunConfig:
 
     def resolve_canonical_placement(self) -> str:
         return resolve_canonical_placement(self.canonical_placement)
+
+    def resolve_halo(self) -> str:
+        return resolve_halo(self.halo)

@@ -28,7 +28,8 @@ Three layers live here:
   the *same* phase fails twice: each rung returns a strictly safer
   ``RunConfig`` (fused pipeline -> chunk loop, device aggregation -> host
   ``aggregate_rows``, kernels -> their plain PyTorch routes,
-  ``device_budget_bytes`` halving on OOM). Every rung is bit-identical, so
+  ``device_budget_bytes`` halving on OOM, the halo all-to-all -> the
+  all-gather of the shard tables). Every rung is bit-identical, so
   a degraded retry reproduces the clean run's patterns exactly. On the
   card the ladder stops before the rungs that hand a kernel's work to its
   plain version or to the host: those run only for CPU tensors.
@@ -53,8 +54,7 @@ from repro_torch.kernels.build import KernelCompileError
 EXIT_CODE = 17
 
 #: where a plan can trip: the six loop phases (obs.PHASES) + the halo
-#: exchange of the distributed backend (not ported: kept so a plan reads
-#: the same in both packages).
+#: exchange of the shard-map backend's partitioned superstep.
 FAULT_PHASES = (
     "materialize", "aggregate", "alpha", "expand", "seal", "checkpoint",
     "halo",
@@ -324,8 +324,10 @@ def apply_degradation(config, phase: str, kind: str, on_card: bool = False):
         return config, None
 
     if kind == "halo" or phase == "halo":
-        # the reference's rung (all-to-all exchange -> all-gather) belongs
-        # to the distributed backend, which is not ported: no halo here
+        # a failed halo exchange: the all-to-all -> the all-gather of the
+        # shard tables, the equivalence oracle the exchange was held to
+        if config.resolve_halo() != "gather":
+            return dataclasses.replace(config, halo="gather"), "halo_gather"
         return config, None
 
     if phase in ("aggregate", "alpha"):

@@ -72,6 +72,12 @@ class SuperstepRuntime:
         from repro_torch.core.runtime.serial import SerialBackend
 
         self.config = config if config is not None else RunConfig()
+        if backend is None:
+            backend = SerialBackend()
+        if device is None and isinstance(graph, Graph):
+            # a backend may name where a host graph goes (the shard-map
+            # backend: its worker 0's device)
+            device = backend.home_device()
         if isinstance(graph, (DeviceGraph, PartitionedGraph)):
             if device is not None and torch.device(device) != graph.device:
                 raise ValueError(
@@ -97,7 +103,7 @@ class SuperstepRuntime:
         else:
             self.g = graph
         self.app = app
-        self.backend = backend if backend is not None else SerialBackend()
+        self.backend = backend
         self.store = self.backend.bind(self.g, self.app, self.config)
         # bind resolved every tri-state knob through the cost model — the
         # runtime sees the same concrete config the backend built from

@@ -16,8 +16,9 @@ A :class:`FrontierStore` owns how the embeddings of one BSP superstep live
 Concrete stores: :class:`RawStore` (this module) keeps the rows verbatim;
 :class:`repro_torch.core.store.odag_store.ODAGStore` keeps them as per-size
 ODAGs; :class:`repro_torch.core.store.spill.SpillStore` wraps either to
-bound the rows materialised per wave. The dense ODAG exchange of the
-distributed backend (``dense_exchange``) is not ported (ROADMAP.md).
+bound the rows materialised per wave. ``dense_exchange`` (the shard-map
+backend) makes the ODAG store merge its workers' children through the
+fixed-shape dense form (§5.2).
 """
 from __future__ import annotations
 
@@ -214,18 +215,14 @@ def make_store(
     from repro_torch.core.store.odag_store import ODAGStore
     from repro_torch.core.store.spill import SpillStore
 
-    if dense_exchange:
-        raise NotImplementedError(
-            "dense_exchange needs the distributed backend, not ported yet; "
-            "see ROADMAP.md"
-        )
     if kind == "raw":
         store: FrontierStore = RawStore()
     elif kind == "odag":
         if g is None:
             raise ValueError("store='odag' needs the device graph")
         store = ODAGStore(g, mode=mode, app_filter=app_filter,
-                          use_pallas=use_pallas)
+                          use_pallas=use_pallas,
+                          dense_exchange=dense_exchange)
     else:
         raise ValueError(f"unknown frontier store kind: {kind!r}")
     if device_budget_bytes is not None:

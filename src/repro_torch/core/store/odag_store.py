@@ -22,8 +22,13 @@ such resurrected rows belong to unsupported patterns by anti-monotonicity,
 so the next superstep's alpha re-prunes them and pattern outputs are
 unchanged. The rows resurrected are exactly the reference's.
 
-Only the single-worker seal is ported; the dense exchange of the
-distributed backend waits (ROADMAP.md).
+Two merge paths on ``seal``: one ragged :func:`repro_torch.core.odag.build`
+for a single worker, and with ``dense_exchange`` and several workers (the
+shard-map backend) each worker's staged rows become a fixed-shape
+:class:`repro_torch.core.odag.DenseODAG` whose words are OR-merged — the
+§5.2 "merge and broadcast" — then unpacked once for extraction;
+``exchange_bytes`` is then the dense form's size, what that collective
+ships a worker.
 """
 from __future__ import annotations
 
@@ -40,12 +45,16 @@ class ODAGStore(FrontierStore):
     kind = "odag"
 
     def __init__(self, g, *, mode: str = "vertex", app_filter=None,
-                 use_pallas: bool = False) -> None:
+                 use_pallas: bool = False,
+                 dense_exchange: bool = False) -> None:
         self._g = g
         self._mode = mode
         self._app_filter = app_filter
         self._use_pallas = use_pallas
-        self._staged: List[tuple] = []       # (rows, count) lazy blocks
+        self._dense_exchange = dense_exchange
+        #: worker -> its (rows, count) lazy blocks, kept apart for the
+        #: dense exchange's per-worker forms
+        self._staged: Dict[int, List[tuple]] = {}
         self._odag: Optional[odag_lib.ODAG] = None
         self._csr: List[odag_lib.CSR] = []
         self._n_rows = 0
@@ -58,22 +67,37 @@ class ODAGStore(FrontierStore):
     # -- write side --------------------------------------------------------
     def append(self, rows, worker: int = 0, count=None) -> None:
         if len(rows) and (count is None or count):
-            self._staged.append((rows, count))
+            self._staged.setdefault(worker, []).append((rows, count))
 
     def seal(self, size: int) -> None:
         with obs.span("store.seal", kind="odag", size=size):
-            blocks = [resolve_rows(r, c) for r, c in self._staged]
-            blocks = [b for b in blocks if len(b)]
-            self._staged = []
+            blocks = {}
+            for w, parts in self._staged.items():
+                resolved = [resolve_rows(r, c) for r, c in parts]
+                resolved = [b for b in resolved if len(b)]
+                if resolved:
+                    blocks[w] = np.concatenate(resolved, axis=0)
+            self._staged = {}
             self._size = size
-            self._n_rows = sum(len(b) for b in blocks)
+            self._n_rows = sum(len(b) for b in blocks.values())
             if not self._n_rows:
                 self._odag, self._csr = None, []
                 self._exchange_bytes = 0
                 return
-            self._odag = odag_lib.build(np.concatenate(blocks, axis=0), k=size)
+            if self._dense_exchange and len(blocks) > 1:
+                # the ids the dense bitmaps span: vertices, or edge ids
+                n_ids = self._g.n if self._mode == "vertex" else self._g.m
+                dense = None
+                for rows in blocks.values():
+                    d = odag_lib.build_dense(rows, n_ids, size)
+                    dense = d if dense is None else dense.merged(d)
+                self._odag = odag_lib.dense_to_ragged(dense)
+                self._exchange_bytes = dense.n_bytes
+            else:
+                self._odag = odag_lib.build(
+                    np.concatenate(list(blocks.values()), axis=0), k=size)
+                self._exchange_bytes = self._odag.n_bytes
             self._csr = odag_lib.conn_csr(self._odag)
-            self._exchange_bytes = self._odag.n_bytes
 
     # -- read side ---------------------------------------------------------
     @property
@@ -176,7 +200,7 @@ class ODAGStore(FrontierStore):
         self._size = int(meta["size"])
         self._n_rows = int(meta["n_rows"])
         self._exchange_bytes = int(meta["exchange_bytes"])
-        self._staged = []
+        self._staged = {}
         levels = int(meta["levels"])
         if not levels:
             self._odag, self._csr = None, []

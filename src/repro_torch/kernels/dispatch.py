@@ -42,6 +42,27 @@ def on_cuda(t: torch.Tensor) -> bool:
     raise ValueError(f"no kernel route for tensors on {t.device}")
 
 
+#: halo-exchange strategies of the partitioned layout (DESIGN.md §11).
+HALO_STRATEGIES = ("alltoall", "gather")
+
+
+def resolve_halo(halo: Optional[str] = None) -> str:
+    """Map the halo knob (``RunConfig.halo``) to a concrete strategy:
+    ``None``/``"auto"`` -> ``"alltoall"``, the request/response exchange
+    that ships only the rows each worker asked for (O(halo) a worker);
+    ``"gather"`` is the fallback that all-gathers the whole shard tables
+    (O(n) a worker), kept as the equivalence oracle and the supervisor's
+    rung after a failed exchange."""
+    if halo is None or halo == "auto":
+        return "alltoall"
+    if halo not in HALO_STRATEGIES:
+        raise ValueError(
+            f"unknown halo strategy {halo!r} (expected one of "
+            f"{HALO_STRATEGIES} or 'auto')"
+        )
+    return halo
+
+
 #: level-2 canonicalisation placements (DESIGN.md §15).
 CANONICAL_PLACEMENTS = ("device", "host", "host_async")
 
@@ -58,3 +79,13 @@ def resolve_canonical_placement(placement: Optional[str] = None) -> str:
             f"{CANONICAL_PLACEMENTS} or 'auto')"
         )
     return placement
+
+
+def device_scope(name: str):
+    """A ``torch.profiler.record_function("repro/<name>")`` range around a
+    stage of a worker body (the fused chunk program, the halo exchange, the
+    aggregation bin), made only while a tracer is installed, as
+    ``obs.annotate`` is: the disabled path touches no profiler machinery."""
+    from repro_torch.core import obs
+
+    return obs.annotate(f"repro/{name}")

@@ -19,6 +19,7 @@ from repro_torch.core import graph as TG
 from repro_torch.core import RunConfig, run
 from repro_torch.core.apps import CliquesApp, FSMApp, MotifsApp
 from repro_torch.core import canon_math
+from repro_torch.core.stats import StepStats
 from repro_torch.kernels import aggregate, build, canonical_refine, compact
 from repro_torch.kernels import gather, radix_bin
 from repro_torch.kernels.canonical_check.canonical_check import (
@@ -628,6 +629,56 @@ def test_store_card_run_equals_cpu_run(cuda_device, app, knobs):
             b.n_frontier, b.n_children, b.n_generated, b.n_canonical,
             b.n_host_syncs, b.n_quick_patterns, b.frontier_bytes,
             b.odag_bytes, b.bytes_to_host)
+
+
+#: the wall-time fields of StepStats (every other field is a count)
+_TIMES = [f.name for f in dataclasses.fields(StepStats)
+          if f.name.startswith("t_")]
+
+
+@pytest.mark.parametrize("knobs", [
+    dict(), dict(graph_partition=4), dict(graph_partition=4, halo="gather"),
+    dict(store="odag"), dict(fused_expand=True, aggregate_bin="radix",
+                             canonical_placement="device"),
+    dict(agg_qcap=16),
+], ids=["whole", "alltoall", "gather", "odag", "fused_device", "qcap"])
+@pytest.mark.parametrize("app", [MotifsApp(max_size=3), CliquesApp(max_size=4),
+                                 FSMApp(support=2, max_size=3)],
+                         ids=["motifs", "cliques", "fsm"])
+def test_shard_card_run_equals_cpu_run(cuda_device, app, knobs,
+                                      monkeypatch):
+    """``run_distributed`` over four workers on the card against the same
+    run over four workers on the CPU: patterns, embeddings in order, every
+    step's counters (``collective_bytes`` included). The CPU run recovers
+    from an overflowing per-worker table as the card does (``qcap``: a
+    re-bin on the workers' devices); the card never takes the host
+    aggregation path."""
+    from repro_torch.core.distributed import make_mesh, run_distributed
+    from repro_torch.core.runtime import ShardMapBackend
+
+    g = (TG.citeseer_like(0.1) if isinstance(app, FSMApp)
+         else TG.mico_like(0.002))
+    cfg = RunConfig(cost_model="off", **knobs)
+    quick_codes = ShardMapBackend.quick_codes
+
+    def card_never_on_host(backend, blocks, size):
+        assert not backend._refold, "the card took the host path"
+        return quick_codes(backend, blocks, size)
+
+    monkeypatch.setattr(ShardMapBackend, "quick_codes", card_never_on_host)
+    gpu = run_distributed(g, app, make_mesh((4,), ("data",),
+                                            device=cuda_device), cfg)
+    monkeypatch.setattr(ShardMapBackend, "refold_on_device", True)
+    cpu = run_distributed(g, app, make_mesh((4,), ("data",), device="cpu"),
+                          cfg)
+    assert gpu.patterns == cpu.patterns
+    assert sorted(gpu.embeddings) == sorted(cpu.embeddings)
+    for size, emb in cpu.embeddings.items():
+        np.testing.assert_array_equal(gpu.embeddings[size], emb)
+    for a, b in zip(gpu.stats.steps, cpu.stats.steps):
+        assert dataclasses.replace(a, **{f: 0.0 for f in _TIMES}) == \
+            dataclasses.replace(b, **{f: 0.0 for f in _TIMES})
+        assert a.n_host_syncs <= 2
 
 
 def test_edge_quick_patterns_in_slices_on_the_card(cuda_device):

@@ -128,23 +128,19 @@ GRID = dict(
 def test_apply_degradation_matches_reference():
     """Every phase and kind, over every combination of the grid's knobs:
     the same event and the same knob values after the rung (a pure
-    function; the halo rung belongs to the distributed backend and gives
-    no rung in the port). On the card (``on_card=True``) the ladder is the
-    same except that it ends where the reference would take a rung to the
-    plain versions or the host."""
+    function, the halo rung included). On the card (``on_card=True``) the
+    ladder is the same except that it ends where the reference would take
+    a rung to the plain versions or the host."""
     names = list(GRID)
     n = n_stopped = 0
     for values in itertools.product(*GRID.values()):
         kw = dict(zip(names, values))
         cfg, jcfg = RunConfig(**kw), JRunConfig(**kw)
         for phase in faults_lib.FAULT_PHASES:
-            for kind in ("crash", "oom"):
+            for kind in ("crash", "oom", "halo"):
                 got, ev = faults_lib.apply_degradation(cfg, phase, kind)
                 card = faults_lib.apply_degradation(cfg, phase, kind,
                                                     on_card=True)
-                if phase == "halo" and kind != "oom":
-                    assert (got, ev) == card == (cfg, None)
-                    continue
                 want, jev = jfaults.apply_degradation(jcfg, phase, kind)
                 assert ev == jev, (kw, phase, kind)
                 for k in names:
@@ -155,8 +151,14 @@ def test_apply_degradation_matches_reference():
                 else:
                     assert card == (got, ev), (kw, phase, kind)
                 n += 1
-        assert faults_lib.apply_degradation(cfg, "expand", "halo") == \
-            (cfg, None)
+    for halo in (None, "alltoall", "gather"):
+        cfg, jcfg = RunConfig(halo=halo), JRunConfig(halo=halo)
+        for phase in faults_lib.FAULT_PHASES:
+            got, ev = faults_lib.apply_degradation(cfg, phase, "halo")
+            want, jev = jfaults.apply_degradation(jcfg, phase, "halo")
+            assert ev == jev and got.halo == want.halo, (halo, phase)
+            assert faults_lib.apply_degradation(
+                cfg, phase, "halo", on_card=True) == (got, ev)
     assert n > 10000 and n_stopped > 1000
     assert RunConfig().async_chunks is None     # inputs never mutated
 

@@ -1,6 +1,7 @@
 """The port's frontier stores (``repro_torch.core.store``, DESIGN.md §7) vs
 the JAX package's: the raw, spill and ODAG store units (mirroring
-``tests/test_store.py``, without the distributed ``dense_exchange``), and
+``tests/test_store.py``; the dense exchange's merge is in
+``test_torch_shard.py``), and
 whole runs under ``store="odag"`` and under a ``device_budget_bytes``
 below the peak frontier, for motifs, cliques and FSM, held to the JAX
 package's runs under the same config with ``assert_same_run`` (patterns,
@@ -129,8 +130,8 @@ def test_make_store_kinds():
             make_store(kind)
     with pytest.raises(ValueError):
         make_store("odag")      # needs the device graph
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_store("odag", g, dense_exchange=True)
+    dense = make_store("odag", g, dense_exchange=True)
+    assert isinstance(dense, ODAGStore) and dense._dense_exchange
 
 
 # ---------------------------------------------------------------------------
