@@ -121,9 +121,9 @@ Phases, in order; any failure exits non-zero and prints no result:
         launches within it (``canonical_check`` must launch);
      c. the paper's FSM graph at its depth, ``citeseer_like(1.0)``,
         support 25, 4 edges (~2.6e8 embeddings at step 4), under
-        ``device_budget_bytes=2**30`` and then in one wave: the waves per
-        step, the walls, the peaks; a frequent pattern of 4 edges, the
-        same patterns in both runs and, up to 3 edges, 7b's patterns;
+        ``device_budget_bytes=2**30`` (the same run in one wave is left
+        to ``--fsm-full-depth``): the waves per step, the wall, the peak;
+        a frequent pattern of 4 edges and, up to 3 edges, 7b's patterns;
   9. the runtime's control plane, through ``run``, ``resume`` and
      ``run_supervised``:
      a. the pilot-calibrated cost model (``cost_model="auto"``) on
@@ -181,7 +181,31 @@ Phases, in order; any failure exits non-zero and prints no result:
         ``store="odag"``: 7b's patterns;
      d. a cut of the partitioned motifs written at four workers resumed at
         three and five, and ``run_supervised`` under a ``halo`` fault (the
-        ``halo_gather`` rung), each equal to phase 5's run.
+        ``halo_gather`` rung), each equal to phase 5's run;
+  11. the exact oracles, Table 1's SN and Patents graphs and the examples,
+     through ``run`` at the default config unless named:
+     a. the card against the port's brute-force oracles
+        (``repro_torch.core.baselines.bruteforce``, host sets, nothing of
+        the engine): size-4 motifs and cliques and FSM supports on the
+        graphs of tests/test_apps_vs_oracle.py, Figure 2's single-edge
+        supports and counts, and the explored embeddings against TLV's
+        (``baselines.tlv.run_tlv``), whose messages exceed twice them;
+     b. paper Table 5 at SN scale: ``unlabeled_sn_like(0.0004)`` under
+        bench_large.py's ``chunk_size=16384, initial_capacity=1 << 16``,
+        size-3 motifs and size-4 cliques (``collect_embeddings=False``),
+        then size-3 motifs of ``unlabeled_sn_like(0.002)``; held to the
+        host's closed forms (scipy.sparse): T = trace(A^3)/6 triangles,
+        sum C(d,2) - 3T open wedges, sum C(d,2) - 2T connected triples,
+        and size-4 cliques by the edges among each edge's common
+        neighbours;
+     c. size-3 motifs of ``patents_like(0.01)`` (37 labels) against the
+        same closed forms;
+     d. every example's ``main`` (``repro_torch.examples``) on the card
+        with its defaults (the trace directory a temporary one), each
+        passing its own check; quickstart's motifs against the oracle, the
+        FSM and the distributed examples against the CPU port;
+     for every run the wall, the peak, per step the phase times and host
+     syncs, and the launches per kernel (added to the kernels line).
 
 Phases 4, 5, 7a-b and 8a-b pass ``cost_model="off"``: under ``"auto"`` a
 graph of 2,048 edges or more is calibrated, and the card and the CPU may
@@ -264,7 +288,8 @@ PARTS = 4                      # graph shards of the partitioned runs
 #: scale (citeseer_like(1.0): 3,312 vertices, 4,732 edges, 6 labels, paper
 #: Table 1) with the example's support of 8 at scale 0.3 scaled to the
 #: whole graph, to 3 edges under three configs (phase 8c mines its 4
-#: edges, ~2.6e8 embeddings, in waves and in one wave), and at the
+#: edges, ~2.6e8 embeddings, in waves; ``--fsm-full-depth`` also in one
+#: wave), and at the
 #: example's own scale, support and depth (citeseer_like(0.3), 8, 4
 #: edges); the domain stress on mico_like(0.1) at size 2
 FSM_SMALL = 0.1                # citeseer_like scale of 7a
@@ -280,6 +305,19 @@ FSM_STRESS_APP = dict(support=100, max_size=2)
 STORE_SMALL = 0.005
 STORE_TINY = 0.001
 FSM_DEPTH_BUDGET = 1 << 30     # ~6.7e7 size-4 rows a wave
+#: phase 11 (oracles and Table 1's graphs): the graphs of
+#: tests/test_apps_vs_oracle.py (motifs: (seed, n, m, labels); cliques:
+#: seeds of random_labeled(50, 180, 1); FSM: (seed, support, edges) on
+#: random_labeled(40, 90, 2)), bench_large.py's SN graph and config
+#: (paper Table 5), SN at 5x its scale, Patents at 1/100
+ORACLE_MOTIFS = [(3, 60, 150, 3), (5, 30, 60, 1), (11, 45, 100, 5)]
+ORACLE_CLIQUES = (0, 7)
+ORACLE_FSM = [(3, 3, 3), (5, 2, 4), (9, 5, 3)]
+SN_TABLE5 = 0.0004             # 2,009 vertices, 79,355 edges, D = 1,623
+SN_WIDE = 0.002                # 10,045 vertices, 396,777 edges, D = 6,274
+PATENTS = 0.01                 # 27,457 vertices, 139,654 edges, 37 labels
+TABLE5_CFG = dict(chunk_size=16384, initial_capacity=1 << 16)
+HOST_ROWS = 1024               # rows a block of the host's sparse products
 MODEL = "qwen2.5-14b"          # phase 6's model, full widths and depth
 FWD_B, FWD_S = 4, 2048         # the timed forward: 4 prompts x 2,048 tokens
 SERVE_B, SERVE_P, SERVE_G = 4, 16, 32   # launch/serve.py's defaults
@@ -1967,23 +2005,25 @@ def store_main_path(torch, np, run, RunConfig, G, build, raw):
     return totals, runs
 
 
-def fsm_depth_runs(torch, run, RunConfig, G, build, totals, fewer_edges=None):
+def fsm_depth_runs(torch, run, RunConfig, G, build, totals, fewer_edges=None,
+                   one_wave=True):
     """Phase 8c (and ``--fsm-full-depth``): the paper's FSM graph at its
     depth, ``citeseer_like(1.0)``, support 25, to 4 edges, under
     ``device_budget_bytes = FSM_DEPTH_BUDGET`` (waves per step logged),
-    then without a budget, in one wave a step: a frequent pattern of 4
-    edges, every support at or above 25, the same patterns in both runs
-    and, given ``fewer_edges`` (7b's patterns to 3 edges), the same
-    patterns of up to 3 edges. A run that runs the card out of memory is
-    logged with the failed allocation, where it was made and the peak,
-    and fails the phase."""
+    then, given ``one_wave``, without a budget, in one wave a step: a
+    frequent pattern of 4 edges, every support at or above 25, the same
+    patterns in both runs and, given ``fewer_edges`` (7b's patterns to 3
+    edges), the same patterns of up to 3 edges. A run that runs the card
+    out of memory is logged with the failed allocation, where it was made
+    and the peak, and fails the phase."""
     from repro_torch.core.apps import FSMApp
 
     app = FSMApp(**dict(FSM_MAIN_APP, max_size=4))
     g = G.citeseer_like(1.0)
     cases = [("fsm_citeseer_4edges_budget",
-              RunConfig(device_budget_bytes=FSM_DEPTH_BUDGET)),
-             ("fsm_citeseer_4edges", RunConfig())]
+              RunConfig(device_budget_bytes=FSM_DEPTH_BUDGET))]
+    if one_wave:
+        cases.append(("fsm_citeseer_4edges", RunConfig()))
     out, results = {}, {}
     for label, cfg in cases:
         oom = None
@@ -2003,7 +2043,8 @@ def fsm_depth_runs(torch, run, RunConfig, G, build, totals, fewer_edges=None):
                 f"{' <- '.join(reversed(oom['at']))}")
             out[label] = {"oom": oom}
             torch.cuda.empty_cache()
-    need(len(results) == 2, f"FSM to 4 edges ran out of device memory: "
+    need(len(results) == len(cases), f"FSM to 4 edges ran out of device "
+         "memory: "
          f"{ {k: r['oom'] for k, r in out.items() if 'oom' in r} }")
     base = results["fsm_citeseer_4edges_budget"]
     by_edges = {}
@@ -2022,9 +2063,10 @@ def fsm_depth_runs(torch, run, RunConfig, G, build, totals, fewer_edges=None):
     log(f"  FSM to 4 edges under the budget: frequent by edges {by_edges}"
         + ("; up to 3 edges equal to 7b's" if fewer_edges is not None
            else ""))
-    need(results["fsm_citeseer_4edges"].patterns == base.patterns,
-         "FSM to 4 edges: the budgeted and the one-wave runs differ")
-    log("  the one-wave run: identical patterns")
+    if one_wave:
+        need(results["fsm_citeseer_4edges"].patterns == base.patterns,
+             "FSM to 4 edges: the budgeted and the one-wave runs differ")
+        log("  the one-wave run: identical patterns")
     return out
 
 
@@ -2853,6 +2895,267 @@ def distributed_phase(torch, np, G, build, motifs5, cliques5, fsm7b):
     torch.cuda.empty_cache()
     out["seconds"] = time.perf_counter() - t_phase
     log(f"  phase 10: {out['seconds']:.1f} s")
+    return totals, out
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: the exact oracles, Table 1's SN and Patents graphs, the examples
+# ---------------------------------------------------------------------------
+
+def sparse_adjacency(np, g):
+    """The symmetric int64 adjacency matrix of ``g`` (scipy CSR)."""
+    import scipy.sparse as sp
+
+    u = g.edges[:, 0].astype(np.int64)
+    v = g.edges[:, 1].astype(np.int64)
+    return sp.csr_matrix(
+        (np.ones(2 * g.m, dtype=np.int64),
+         (np.concatenate([u, v]), np.concatenate([v, u]))), shape=(g.n, g.n))
+
+
+def closed_forms(np, g):
+    """The host's counts of ``g``'s size-3 vertex sets, independent of the
+    port: triangles T = trace(A^3) / 6 (A^2 in blocks of rows), pairs of
+    edges at a vertex P = sum C(d, 2), open wedges P - 3T, connected size-3
+    sets P - 2T. Returns them and A."""
+    t0 = time.perf_counter()
+    a = sparse_adjacency(np, g)
+    deg = np.diff(a.indptr).astype(np.int64)
+    trace = 0
+    for lo in range(0, g.n, HOST_ROWS):
+        blk = a[lo:lo + HOST_ROWS]
+        trace += int((blk @ a).multiply(blk).sum())
+    need(trace % 6 == 0, f"trace(A^3) = {trace} is not a multiple of 6")
+    tri = trace // 6
+    pairs = int((deg * (deg - 1) // 2).sum())
+    return {"triangles": tri, "pairs": pairs, "wedges": pairs - 3 * tri,
+            "connected3": pairs - 2 * tri, "max_degree": int(deg.max()),
+            "seconds": time.perf_counter() - t0}, a
+
+
+def four_cliques(np, a, edges) -> int:
+    """Size-4 cliques: over every edge, the edges among its endpoints'
+    common neighbours, summed and divided by 6 (each clique has 6 edges,
+    and each sees one edge among the other two vertices)."""
+    total = 0
+    for lo in range(0, len(edges), HOST_ROWS):
+        e = edges[lo:lo + HOST_ROWS].astype(np.int64)
+        common = a[e[:, 0]].multiply(a[e[:, 1]])
+        # common A common^T summed: twice the edges among them, a row an edge
+        total += int((common @ a).multiply(common).sum())
+    need(total % 12 == 0, f"twice 6 x the 4-cliques = {total}, not a "
+         "multiple of 12")
+    return total // 12
+
+
+def motif_sizes(res) -> dict:
+    """Motif counts of a size-3 run by size, with size 3 split into the
+    triangle (all three pair bits set) and the open wedges."""
+    out = {}
+    for code, cnt in res.patterns.items():
+        key = code[0] & 0xF
+        if key == 3:
+            key = "triangles" if (code[0] >> 4) == 0b111 else "wedges"
+        out[key] = out.get(key, 0) + cnt
+    return out
+
+
+def check_size3_motifs(label, g, res, forms):
+    """A size-3 motif run against the host's closed forms."""
+    got = motif_sizes(res)
+    want = {1: g.n, 2: g.m, "triangles": forms["triangles"],
+            "wedges": forms["wedges"]}
+    need(got == want, f"{label}: motif counts {got} != closed forms {want}")
+    total = g.n + g.m + forms["connected3"]
+    need(res.stats.total_embeddings == total,
+         f"{label}: {res.stats.total_embeddings} embeddings != n + m + "
+         f"sum C(d,2) - 2T = {total}")
+
+
+#: phase 11d: the examples, each run on the card with its defaults (but
+#: ``traced_run``'s trace directory, a temporary one)
+EXAMPLES = ("quickstart", "cliques", "fsm_end_to_end", "motifs_distributed",
+            "motifs_odag_store", "resume_after_crash", "traced_run")
+
+
+def run_example(torch, build, totals, name, argv):
+    """One example's ``main(argv)`` on the card, its output captured, its
+    launches counted (zeroed just before, read just after, added to
+    ``totals``); an example's own failed check fails the phase."""
+    mod = importlib.import_module(f"repro_torch.examples.{name}")
+    buf = io.StringIO()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            ret = mod.main(argv)
+    except SystemExit as e:
+        raise SmokeFailure(f"11d {name}: {e}") from e
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    for k, v in launches.items():
+        totals[k] += v
+    lines = buf.getvalue().splitlines()
+    rec = {"example": name, "argv": argv, "wall_s": wall,
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "launches": launches, "last_line": lines[-1] if lines else ""}
+    log(f"  {name}: wall {wall:.3f} s, peak "
+        f"{rec['peak_bytes'] / 2**30:.2f} GiB, launches "
+        f"{ {k: v for k, v in launches.items() if v} }; "
+        f"'{rec['last_line'][:100]}'")
+    return rec, ret
+
+
+def oracle_phase(torch, np, run, RunConfig, G, build):
+    """Phase 11: a. card runs at the default config against the port's
+    brute-force oracles and TLV; b. bench_large.py's SN graph (size-3
+    motifs, size-4 cliques) and SN at 5x (size-3 motifs) against the
+    host's closed forms; c. Patents at 1/100 (size-3 motifs) against them;
+    d. every example's ``main`` on the card. Kernels counted."""
+    from repro_torch.core.apps import CliquesApp, FSMApp, MotifsApp
+    from repro_torch.core.baselines import bruteforce as bf
+    from repro_torch.core.baselines import tlv
+
+    t_phase = time.perf_counter()
+    totals = {name: 0 for name in build.LAUNCHES}
+    out = {"runs": [], "oracle_s": 0.0}
+
+    def card(label, g, app, cfg=None):
+        rec, res, _ = counted_run(torch, run, build, totals, label, g, app,
+                                  cfg or RunConfig())
+        out["runs"].append(rec)
+        return res
+
+    def oracle(fn, *args):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args)
+        finally:
+            out["oracle_s"] += time.perf_counter() - t0
+
+    # ---- 11a. the card against the oracles -------------------------------
+    log("[11a] card runs at the default config vs the port's brute-force "
+        "oracles and TLV")
+    for seed, n, m, labels in ORACLE_MOTIFS:
+        g = G.random_labeled(n, m, n_labels=labels, seed=seed)
+        res = card(f"oracle_motifs4_s{seed}", g, MotifsApp(max_size=4))
+        need(res.patterns == oracle(bf.motif_counts, g, 4),
+             f"11a motifs seed {seed}: the card differs from the oracle")
+    for seed in ORACLE_CLIQUES:
+        g = G.random_labeled(50, 180, n_labels=1, seed=seed)
+        res = card(f"oracle_cliques4_s{seed}", g, CliquesApp(max_size=4))
+        want = {k: v for k, v in oracle(bf.clique_counts, g, 4).items() if v}
+        got = {k: len(v) for k, v in res.embeddings.items()}
+        need(got == want, f"11a cliques seed {seed}: {got} != {want}")
+    for seed, sup, ms in ORACLE_FSM:
+        g = G.random_labeled(40, 90, n_labels=2, seed=seed)
+        res = card(f"oracle_fsm_s{seed}", g, FSMApp(support=sup, max_size=ms))
+        need(res.patterns == oracle(bf.fsm_supports, g, ms, sup),
+             f"11a FSM seed {seed}: the card differs from the oracle")
+    g = G.paper_figure2()
+    res = card("oracle_figure2", g, FSMApp(support=1, max_size=1))
+    need(res.patterns == oracle(bf.fsm_supports, g, 1, 1)
+         and list(res.patterns.values()) == [2],
+         f"11a Figure 2: supports {res.patterns}")
+    res = card("oracle_figure2_counts", g,
+               FSMApp(support=1, max_size=1, wants_domains=False))
+    need(list(res.patterns.values()) == [3],
+         f"11a Figure 2: embedding counts {res.patterns}")
+    g = G.random_labeled(60, 150, n_labels=2, seed=3)
+    res = card("oracle_tle_vs_tlv", g, MotifsApp(max_size=3))
+    rep = oracle(tlv.run_tlv, g, 3)
+    need(res.stats.total_embeddings == rep.n_embeddings,
+         f"11a: the card explored {res.stats.total_embeddings} embeddings, "
+         f"TLV {rep.n_embeddings}")
+    need(rep.n_messages > 2 * rep.n_embeddings,
+         f"11a: TLV sent {rep.n_messages} messages for {rep.n_embeddings} "
+         "embeddings")
+    out["tlv"] = {"n_messages": rep.n_messages,
+                  "n_embeddings": rep.n_embeddings,
+                  "max_vertex_load": rep.max_vertex_load,
+                  "mean_vertex_load": rep.mean_vertex_load,
+                  "host_s": rep.wall_time}
+    log(f"  every card run equal to its oracle (host oracles "
+        f"{out['oracle_s']:.1f} s); TLV: {rep.n_messages} messages for "
+        f"{rep.n_embeddings} embeddings, vertex load max "
+        f"{rep.max_vertex_load} mean {rep.mean_vertex_load:.1f}")
+
+    # ---- 11b. paper Table 5's stress at SN scale ---------------------------
+    graphs = {}
+    for key, make, scale in (("sn", G.unlabeled_sn_like, SN_TABLE5),
+                             ("sn_wide", G.unlabeled_sn_like, SN_WIDE),
+                             ("patents", G.patents_like, PATENTS)):
+        g = make(scale)
+        forms, a = closed_forms(np, g)
+        graphs[key] = (g, forms, a)
+        out[f"{key}_graph"] = {"scale": scale, "n": g.n, "m": g.m, **forms}
+        log(f"  {make.__name__}({scale}): {g.n} vertices, {g.m} edges, D "
+            f"{forms['max_degree']}, T {forms['triangles']}, sum C(d,2) "
+            f"{forms['pairs']} (host {forms['seconds']:.2f} s)")
+    g, forms, a = graphs["sn"]
+    log(f"[11b] Table 5 at SN scale: unlabeled_sn_like({SN_TABLE5}), "
+        f"{TABLE5_CFG}")
+    res = card("sn_motifs3", g, MotifsApp(max_size=3), RunConfig(**TABLE5_CFG))
+    check_size3_motifs("11b SN motifs", g, res, forms)
+    res = card("sn_cliques4", g, CliquesApp(max_size=4,
+                                            collect_embeddings=False),
+               RunConfig(**TABLE5_CFG))
+    t0 = time.perf_counter()
+    k4 = four_cliques(np, a, g.edges)
+    out["sn_graph"]["four_cliques"] = k4
+    out["sn_graph"]["four_cliques_s"] = time.perf_counter() - t0
+    got = {1: res.stats.steps[0].n_frontier}
+    got.update({s.size + 1: s.n_children for s in res.stats.steps
+                if s.n_children})
+    want = {1: g.n, 2: g.m, 3: forms["triangles"], 4: k4}
+    need(got == want, f"11b SN cliques per size {got} != host counts {want}")
+    log(f"  SN: motifs = closed forms, cliques per size {got} = host counts "
+        f"(4-cliques over the edges' common neighbours, "
+        f"{out['sn_graph']['four_cliques_s']:.2f} s)")
+    g, forms, _ = graphs["sn_wide"]
+    log(f"  size-3 motifs at full width on unlabeled_sn_like({SN_WIDE}): "
+        f"{forms['connected3']} connected triples")
+    res = card("sn_wide_motifs3", g, MotifsApp(max_size=3))
+    check_size3_motifs("11b SN wide motifs", g, res, forms)
+
+    # ---- 11c. Patents ------------------------------------------------------
+    g, forms, _ = graphs["patents"]
+    log(f"[11c] patents_like({PATENTS}): size-3 motifs, default config")
+    res = card("patents_motifs3", g, MotifsApp(max_size=3))
+    check_size3_motifs("11c Patents motifs", g, res, forms)
+    log(f"  Patents: {len(res.patterns)} patterns, "
+        f"{res.stats.total_embeddings} embeddings = n + m + sum C(d,2) - 2T")
+    del graphs, a, res
+
+    # ---- 11d. the examples ---------------------------------------------------
+    log("[11d] the examples on the card (repro_torch.examples)")
+    out["examples"] = []
+    with tempfile.TemporaryDirectory() as traces:
+        for name in EXAMPLES:
+            argv = ["--trace-dir", traces] if name == "traced_run" else []
+            rec, ret = run_example(torch, build, totals, name, argv)
+            out["examples"].append(rec)
+            if name == "quickstart":
+                g = G.citeseer_like(0.05)
+                need(ret.patterns == oracle(bf.motif_counts, g, 3),
+                     "11d quickstart: motifs differ from the oracle")
+            elif name == "fsm_end_to_end":
+                cpu = run(G.citeseer_like(0.3), FSMApp(support=8, max_size=3),
+                          RunConfig(chunk_size=8192, initial_capacity=1 << 15),
+                          device="cpu")
+                need(ret.patterns == cpu.patterns,
+                     "11d fsm_end_to_end: patterns differ from the CPU port")
+            elif name.startswith("motifs_"):
+                cpu = run(G.mico_like(0.004), MotifsApp(max_size=3),
+                          RunConfig(), device="cpu")
+                need(ret.patterns == cpu.patterns,
+                     f"11d {name}: patterns differ from the serial CPU run")
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 11: {out['seconds']:.1f} s")
     return totals, out
 
 
@@ -3695,10 +3998,11 @@ def main(argv=None) -> int:
     motifs5, cliques5 = raw_runs["motifs"], raw_runs["cliques"]
     del raw_runs
     log(f"[8c] the paper's FSM graph at its depth: citeseer_like(1.0), "
-        f"{dict(FSM_MAIN_APP, max_size=4)}, budget {FSM_DEPTH_BUDGET} B, "
-        "then one wave")
+        f"{dict(FSM_MAIN_APP, max_size=4)}, budget {FSM_DEPTH_BUDGET} B "
+        "(the one-wave run: --fsm-full-depth)")
     extra["fsm_depth"] = fsm_depth_runs(torch, run, RunConfig, G, build,
-                                        store_totals, fewer_edges=fsm_3edges)
+                                        store_totals, fewer_edges=fsm_3edges,
+                                        one_wave=False)
     for name, v in store_totals.items():
         totals[name] += v
 
@@ -3716,6 +4020,14 @@ def main(argv=None) -> int:
         torch, np, G, build, motifs5, cliques5, fsm_3edges)
     del motifs5, cliques5, fsm_3edges
     for name, v in shard_totals.items():
+        totals[name] += v
+
+    # ---- 11. the oracles, Table 1's SN and Patents graphs, the examples -----
+    log("[11] the exact oracles, Table 1's SN and Patents graphs, the "
+        "examples")
+    oracle_totals, extra["oracles"] = oracle_phase(torch, np, run, RunConfig,
+                                                   G, build)
+    for name, v in oracle_totals.items():
         totals[name] += v
     for row in kernels:
         row["launches"] = totals[row["name"]]

@@ -459,6 +459,21 @@ def mico_like(scale: float = 0.02, seed: int = 11) -> Graph:
     return random_labeled(n, m, n_labels=29, seed=seed)
 
 
+def patents_like(scale: float = 0.001, seed: int = 13) -> Graph:
+    """Patents-shaped: 2.74M vertices / 13.97M edges / 37 labels (Table 1)."""
+    n = max(16, int(2_745_761 * scale))
+    m = max(16, int(13_965_409 * scale))
+    return random_labeled(n, m, n_labels=37, seed=seed)
+
+
+def unlabeled_sn_like(scale: float = 0.0005, seed: int = 17) -> Graph:
+    """SN-shaped: dense unlabeled social graph (avg degree 79, Table 1)."""
+    n = max(16, int(5_022_893 * scale))
+    m = max(32, int(n * 39.5))
+    g = random_labeled(n, m, n_labels=1, seed=seed, power_law=True)
+    return Graph(n=g.n, labels=np.zeros(g.n, dtype=np.int32), edges=g.edges)
+
+
 # -- tiny deterministic graphs used throughout the tests --------------------
 
 def paper_figure2() -> Graph:

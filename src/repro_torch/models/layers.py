@@ -10,7 +10,8 @@ On a CUDA tensor :func:`rmsnorm` launches the RMSNorm kernel and
 take their kernels' plain versions. The sharding helpers of the reference
 (``constrain``, ``activation_sharding``, ``spec_for``,
 ``build_param_specs``, ``LAYOUT``) have no meaning on one card and are not
-ported; MLA and MoE raise ``NotImplementedError`` (ROADMAP.md queue A).
+ported; MLA and MoE raise ``NotImplementedError`` (ROADMAP.md queue A
+item 6).
 """
 from __future__ import annotations
 
@@ -120,7 +121,7 @@ class Attention(nn.Module):
 def init_gqa(cfg: ArchConfig, ini: Init) -> Attention:
     if cfg.use_mla:
         raise NotImplementedError(
-            "MLA attention is not ported yet (ROADMAP.md queue A item 13)")
+            "MLA attention is not ported yet (ROADMAP.md queue A item 6)")
     dh = cfg.head_dim
     return Attention(
         wq=ini.dense(cfg.d_model, cfg.n_heads * dh, bias=cfg.qkv_bias),
@@ -148,7 +149,7 @@ def gqa_attention(cfg: ArchConfig, p: Attention, x, positions):
     online softmax, so per 128-key tile and before the division by the
     sum); the plain version keeps them in f32. The windowed and non-causal
     attention of the hybrid and encoder families is not ported (ROADMAP.md
-    queue A item 13)."""
+    queue A item 6)."""
     b, s, _ = x.shape
     dh = cfg.head_dim
     q = _proj(x, p.wq).reshape(b, s, cfg.n_heads, dh)

@@ -12,7 +12,7 @@ both.
 
 The families the reference also assembles here (``moe``, ``hybrid``,
 ``ssm``, ``encdec``, ``vlm``) and MLA attention raise
-``NotImplementedError`` (ROADMAP.md queue A item 13), as do the loss and
+``NotImplementedError`` (ROADMAP.md queue A item 6), as do the loss and
 training.
 """
 from __future__ import annotations
@@ -146,12 +146,12 @@ def _check_ported(cfg: ArchConfig) -> None:
     if cfg.family in UNPORTED:
         raise NotImplementedError(
             f"the {cfg.family} family ({cfg.name}) is not ported yet "
-            "(ROADMAP.md queue A item 13)")
+            "(ROADMAP.md queue A item 6)")
     if cfg.family != "dense":
         raise ValueError(cfg.family)
     if cfg.use_mla:
         raise NotImplementedError(
-            "MLA attention is not ported yet (ROADMAP.md queue A item 13)")
+            "MLA attention is not ported yet (ROADMAP.md queue A item 6)")
 
 
 def build_model(cfg: ArchConfig, device=None, seed: int = 0) -> DecoderLM:

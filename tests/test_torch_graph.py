@@ -19,6 +19,8 @@ GENERATORS = [
     ("random_labeled", lambda m: m.random_labeled(40, 90, n_labels=3, seed=2)),
     ("citeseer_like", lambda m: m.citeseer_like(scale=0.02)),
     ("mico_like", lambda m: m.mico_like(scale=0.002)),
+    ("patents_like", lambda m: m.patents_like(scale=0.0005)),
+    ("unlabeled_sn_like", lambda m: m.unlabeled_sn_like(scale=0.0001)),
     ("paper_figure2", lambda m: m.paper_figure2()),
     ("triangle_plus_tail", lambda m: m.triangle_plus_tail()),
     ("complete", lambda m: m.complete(6, n_labels=2, seed=1)),
