@@ -205,7 +205,42 @@ Phases, in order; any failure exits non-zero and prints no result:
         passing its own check; quickstart's motifs against the oracle, the
         FSM and the distributed examples against the CPU port;
      for every run the wall, the peak, per step the phase times and host
-     syncs, and the launches per kernel (added to the kernels line).
+     syncs, and the launches per kernel (added to the kernels line);
+  12. the rest of the model zoo's serving path (``repro_torch.models``):
+     a. flash attention at the new families' shapes, bf16: zamba2's
+        sliding window of 512 over S = 2,048 (32 heads of 80), deepseek's
+        MLA prefill (128 heads, D = 192 with v zero-padded from 128),
+        whisper's encoder (S = 1,500, 8 heads of 64, no mask) and its
+        cross-attention (448 queries over 1,500 frames); RMSNorm at MLA's
+        q and kv norms (1,536, 512), Mamba2's gate norm (5,120) and the
+        mLSTM's output norm (4,096), 8,192 rows; each against its plain
+        version (6a's bounds), timed beside it, its bound and the library
+        call (SDPA with the same mask, ``F.rms_norm``);
+     b. the card port against the CPU port on the reduced deepseek-v2-236b,
+        llama4-maverick-400b-a17b, zamba2-2.7b, xlstm-1.3b, whisper-base and
+        internvl2-26b, forward and 8 decode steps (zamba2 also 8 around
+        its shared attention's clamp) under 6b's rule; the MoE archs on
+        four input batches, their bf16 runs routed as the f32 run (so that
+        the rule holds every position), each router's own choice recorded:
+        the card's at most 1/8 of the positions more off the f32 run's
+        experts than the CPU's;
+     c. deepseek-v2-236b (cut to its dense layer and two MoE layers),
+        zamba2-2.7b, xlstm-1.3b, whisper-base and internvl2-26b at their
+        published widths, random weights from seed 0: a forward of 4 x
+        2,048 tokens (whisper 448 over 1,500 frames, internvl2 after 256
+        patches) and ``generate`` for 4 requests (prompt 16, gen 32), with
+        the exact launches of each derived from the config (xLSTM launches
+        no flash); decode against the forward at B = 2 (S = 256, whisper
+        448) under the JAX package's bound for the family (deepseek's MoE
+        capacity lifted in both), and the control with the state zeroed
+        each step outside it; zamba2 and xlstm, whose random-weight stacks
+        are chaotic at published depth, block by block (each block of the
+        first super block, the shared attention+MLP block and the chunked
+        scans, S = 512: two chunks, each with its control; their whole
+        decode logged); one forward and one decode step under sync debug mode
+        "error"; ``generate`` timed once, after the decode check; the
+        wall, the peaks and the weights' bytes, each model freed before the
+        next.
 
 Phases 4, 5, 7a-b and 8a-b pass ``cost_model="off"``: under ``"auto"`` a
 graph of 2,048 edges or more is calibrated, and the card and the CPU may
@@ -3502,8 +3537,9 @@ def f32_reference_forward(torch, model, tokens):
 
 def masked_attention(torch, keep):
     """Plain attention over (B, S, H, D) / (B, S, KV, D) keeping the
-    (query, key) pairs where ``keep(qi, kj)`` is true."""
-    def attend(q, k, v, causal=True):
+    (query, key) pairs where ``keep(qi, kj)`` is true, in place of the
+    flash kernel's causal mask and window (the dense decoder passes 0)."""
+    def attend(q, k, v, causal=True, window=0):
         b, s, h, d = q.shape
         kv = k.shape[2]
         i = torch.arange(s, device=q.device)
@@ -3722,6 +3758,756 @@ def model_profile(torch, model, tokens, prompt, walls, top=8):
         for us, k, c in rows[:top]:
             log(f"    {us / 1e3:9.3f} ms  x{c:<5} {k[:80]}")
     return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 12: the rest of the model zoo's serving path
+# ---------------------------------------------------------------------------
+
+#: 12c's models at their published widths, seed 0; deepseek-v2-236b cut to
+#: its leading dense layer and two MoE layers (one MoE layer's experts are
+#: 3.8e9 parameters; all 59 would be 472 GB), the others at full depth
+ZOO = ("deepseek-v2-236b", "zamba2-2.7b", "xlstm-1.3b", "whisper-base",
+       "internvl2-26b")
+ZOO_CUT = {"deepseek-v2-236b": dict(n_layers=3, first_dense_layers=1)}
+#: 12b's reduced models, card against CPU
+ZOO_REDUCED = ("deepseek-v2-236b", "llama4-maverick-400b-a17b",
+               "zamba2-2.7b", "xlstm-1.3b", "whisper-base", "internvl2-26b")
+#: decode vs forward at B = 2: the attention decoders over phase 6's 256
+#: positions (whisper: its decoder context), the recurrent families (whole
+#: model and chunked blocks) over two 256-token chunks
+ZOO_CHECK_B, ZOO_CHECK_S, ZOO_BLOCK_S = 2, 256, 512
+#: 12b's input seeds, and its MoE rule: the card's router may send at
+#: most this share of the positions more off the f32 run's experts than
+#: the CPU's (PERF.md §6 holds the readings it is set from)
+ZOO_ROUTE_SEEDS = (6, 7, 8, 9)
+REROUTE_SLACK = 1 / 8
+WHISPER_S = 448                      # whisper's decoder context
+CONTROL_STEPS = 32                   # decode steps of the controls
+#: decode vs forward at published widths: the JAX package's own bounds for
+#: each family (tests/test_models_smoke.py): the deep stack's whose decode
+#: associates differently (MLA: correlation > 0.995, argmax agreement >
+#: 0.9), which the GQA decoders (internvl2 at 48 layers, whisper) take with
+#: phase 6's relative RMS 0.06 (the JAX package's elementwise 3e-2 is its
+#: bound at 2-4 reduced layers; phase 6 measured a relative RMS of 0.023
+#: between decode and forward at 48 full layers, whose largest elements
+#: pass 3e-2 on noise alone); and the recurrent families' (correlation >
+#: 0.998, mean |diff| < 0.05, 99th percentile < 0.25), logged for zamba2
+#: and xlstm but not held: with random weights their published stacks are
+#: chaotic, so rounding alone moves the logits as far as the bound allows
+#: many times over (the bf16 forward against the f32 forward of the same
+#: weights on the card: correlation 0.888 for zamba2's 54 layers, 0.376 for
+#: xlstm's 48). The reference is as chaotic: a 1e-6 relative change of one
+#: published-width sLSTM block's input moves its output by 5.7 % at
+#: position 511 in the JAX package, 6.3 % in the port
+#: (tests/slstm_perturbation.py, on the CPU). Those two are held to the
+#: recurrent bound block by block instead (:func:`chunked_blocks`: each
+#: block of the first super block, chunked scans and the hybrid's shared
+#: attention+MLP block, the same input to its forward and its step-by-step
+#: decode, each with its control).
+ZOO_BOUNDS = {
+    "recurrent": dict(corr=0.998, mean=0.05, q99=0.25),
+    "deep": dict(corr=0.995, agree=0.9),
+    "gqa": dict(corr=0.995, agree=0.9, rel_rms=DECODE_VS_FORWARD_MAX),
+}
+
+
+def zoo_config(name, reduced=False):
+    import dataclasses
+
+    from repro_torch.configs.registry import get_arch
+    cfg = get_arch(name)
+    if reduced:
+        return cfg.reduced()
+    return dataclasses.replace(cfg, **ZOO_CUT.get(name, {}))
+
+
+def zoo_launches(cfg) -> dict:
+    """Exact kernel launches of one forward and of one decode step, from
+    the config: every norm is one RMSNorm launch (MLA adds its q and kv
+    norms, Mamba2 its gate norm, the mLSTM and sLSTM their output norms),
+    every full-sequence attention one flash launch (the decode steps attend
+    in plain PyTorch)."""
+    L = cfg.n_layers
+    if cfg.family == "hybrid":
+        n_attn = L // cfg.attn_every
+        rms, flash, dec = 2 * L + 2 * n_attn + 1, n_attn, 2 * L + 2 * n_attn + 1
+    elif cfg.family == "ssm":
+        rms, flash, dec = 2 * L + 1, 0, 2 * L + 1
+    elif cfg.family == "encdec":
+        rms = 2 * cfg.encoder_layers + 1 + 3 * L + 1
+        flash, dec = cfg.encoder_layers + 2 * L, 3 * L + 1
+    else:
+        per = 4 if cfg.use_mla else 2
+        rms, flash, dec = per * L + 1, L, per * L + 1
+    return {"forward": {"rmsnorm": rms, "flash_attention": flash},
+            "decode_step": {"rmsnorm": dec}}
+
+
+def zoo_inputs(cfg, b, s, gen):
+    """tokens (B, S) and the family's other forward inputs (patch
+    embeddings, audio frames) from ``gen``, on its device
+    (``models.make_batch``)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models import make_batch
+    batch = make_batch(cfg, ShapeConfig("zoo", s, b, "prefill"), gen)
+    return batch["tokens"], {k: v for k, v in batch.items()
+                             if k in ("patch_embeds", "frames")}
+
+
+def zoo_kernel_checks(torch):
+    """12a: flash attention at the new families' shapes (the hybrid's
+    window, MLA's prefill with v padded, whisper's encoder and its
+    cross-attention) and RMSNorm at the new norms' widths, bf16, each
+    against its plain version and timed beside it, its bound and the
+    library call. Returns every case's record."""
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention_cuda, flash_attention_ref)
+    from repro_torch.kernels.rmsnorm.rmsnorm import rmsnorm_cuda, rmsnorm_ref
+
+    F = torch.nn.functional
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(12)
+    bf16 = torch.bfloat16
+    cases = []
+    rows = FWD_B * FWD_S
+    for what, d in (("MLA q_norm", 1536), ("MLA kv_norm", 512),
+                    ("Mamba2 gate_norm", 5120), ("mLSTM out_norm", 4096)):
+        x = torch.randn((rows, d), generator=gen, device=dev).to(bf16)
+        scale = (1 + 0.1 * torch.randn((d,), generator=gen, device=dev)
+                 ).to(bf16)
+        got = rmsnorm_cuda(x, scale, 1e-5)
+        want = rmsnorm_ref(x, scale, 1e-5)
+        torch.cuda.synchronize()
+        diff = (got.float() - want.float()).abs()
+        need(bool((diff <= 2**-7 * want.float().abs()).all()),
+             f"rmsnorm {what} ({rows}, {d}) differs from its plain version "
+             f"by {float(diff.max())}")
+        timed = time_call(torch, lambda: rmsnorm_cuda(x, scale, 1e-5),
+                          device=True)
+        plain = time_ms(torch, lambda: rmsnorm_ref(x, scale, 1e-5))
+        lib = time_ms(torch, lambda: F.rms_norm(x, (d,), scale, 1e-5))
+        row = kernel_row(
+            "rmsnorm", "src/repro_torch/kernels/csrc/rmsnorm.cu",
+            "src/repro/kernels/rmsnorm/rmsnorm.py:23", float(diff.max()),
+            timed, plain, (2 * rows * d + d) * 2, lib, ops=4 * rows * d,
+            op_rate=F32_FLOPS)
+        cases.append(dict(row, shape=[rows, d], at=what))
+        del x, got, want, diff
+
+    for what, b, sq, sk, h, d, causal, window in (
+            ("zamba2 window 512", FWD_B, FWD_S, FWD_S, 32, 80, True, 512),
+            ("deepseek MLA prefill, v padded", FWD_B, FWD_S, FWD_S, 128, 192,
+             True, 0),
+            ("whisper encoder", FWD_B, 1500, 1500, 8, 64, False, 0),
+            ("whisper cross-attention", FWD_B, WHISPER_S, 1500, 8, 64, False,
+             0)):
+        dv = 128 if "padded" in what else d      # MLA's v: 128 of its 192
+        q = torch.randn((b, sq, h, d), generator=gen, device=dev).to(bf16)
+        k = torch.randn((b, sk, h, d), generator=gen, device=dev).to(bf16)
+        v = torch.randn((b, sk, h, d), generator=gen, device=dev).to(bf16)
+        v[..., dv:] = 0
+        i = torch.arange(sq, device=dev)[:, None]
+        j = torch.arange(sk, device=dev)[None, :]
+        keep = (i >= j) if causal else torch.ones_like(i >= j)
+        if window:
+            keep = keep & (j > i - window)
+        pairs = int(keep.sum())
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        mask = None if (not window and causal) else keep
+
+        def sdpa():
+            if mask is None:
+                return F.scaled_dot_product_attention(qt, kt, vt,
+                                                      is_causal=True)
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+
+        got = flash_attention_cuda(q, k, v, causal, window)
+        want = flash_attention_ref(q, k, v, causal, window).float()
+        lib_out = sdpa().transpose(1, 2).float()
+        torch.cuda.synchronize()
+        diff = (got.float() - want).abs()
+        lib_err = float((lib_out - want).abs().max())
+        need(bool((diff <= 2e-2 + 2e-2 * want.abs()).all()),
+             f"flash_attention {what} differs from its plain version by "
+             f"{float(diff.max())} (bound 2e-2)")
+        need(float(diff.max()) <= 1.5 * lib_err,
+             f"flash_attention {what}: max error {float(diff.max())} above "
+             f"1.5x SDPA's {lib_err}")
+        need(bool((got[..., dv:] == 0).all()),
+             f"{what}: the padded v columns came out non-zero")
+        del want, lib_out
+        timed = time_call(torch, lambda: flash_attention_cuda(
+            q, k, v, causal, window), device=True)
+        plain = time_ms(torch, lambda: flash_attention_ref(
+            q, k, v, causal, window), **PLAIN)
+        lib = time_ms(torch, sdpa)
+        # the function's work: QK^T at d and PV at dv a kept pair; q and k
+        # read, v read and the output written at their dv real columns (the
+        # padding is the kernel's cost, not the function's)
+        flops = 2 * (d + dv) * pairs * b * h
+        nbytes = (q.numel() + k.numel() + b * h * (sk + sq) * dv) * 2
+        row = kernel_row(
+            "flash_attention",
+            "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "src/repro/kernels/flash_attention/flash_attention.py:68",
+            float(diff.max()), timed, plain, nbytes, lib, ops=flops,
+            op_rate=BF16_FLOPS)
+        log(f"    {what}: SDPA's max_abs_err {lib_err}; kernel "
+            f"{flops / timed['ms'] / 1e9:.1f} TFLOP/s, "
+            f"{row['bound_ms'] / timed['ms']:.1%} of its bound, "
+            f"{timed['ms'] / lib:.2f}x SDPA")
+        cases.append(dict(row, shape=[b, sq, sk, h, d], causal=causal,
+                          window=window, at=what, library_max_abs_err=lib_err))
+        del q, k, v, qt, kt, vt, got, diff, keep
+        torch.cuda.empty_cache()
+    return cases
+
+
+class RouteLog:
+    """While active, records each MoE layer's own expert choice: one
+    (tokens, k) tensor a call of ``layers._moe_route``, each token's
+    experts in ascending order, tokens in the layer's input order. Given
+    ``force`` (the record of another run of the same calls, in the same
+    order), each call routes as that run did instead, and its own choice
+    is recorded all the same."""
+
+    def __init__(self, force=None):
+        self.force = force
+
+    def __enter__(self):
+        from repro_torch.models import layers
+        self.layers, self.orig = layers, layers._moe_route
+        self.calls, self.chosen = [], []
+        forced = iter(self.force.chosen) if self.force is not None else None
+
+        def logged(cfg, p, xt):
+            probs, topi = self.orig(cfg, p, xt)
+            self.calls.append(topi.sort(dim=-1).values.reshape(
+                -1, cfg.top_k).cpu())
+            self.chosen.append(topi)
+            if forced is not None:
+                topi = next(forced).to(topi.device)
+            return probs, topi
+        layers._moe_route = logged
+        return self
+
+    def __exit__(self, *exc):
+        self.layers._moe_route = self.orig
+
+    def per_position(self, torch, b, steps=None):
+        """(B, S, layers * k): a forward's calls (``steps`` None) or those
+        of ``steps`` decode steps of B tokens."""
+        if steps is None:
+            return torch.cat(self.calls, dim=1).reshape(b, -1,
+                                                        len(self.calls) *
+                                                        self.calls[0].shape[1])
+        c = torch.stack(self.calls).reshape(steps, -1, b,
+                                            self.calls[0].shape[1])
+        return c.permute(2, 0, 1, 3).reshape(b, steps, -1)
+
+
+def routed_errors(torch, got, cpu, ref, routes):
+    """6b's errors of a MoE model whose bf16 runs took the f32 run's
+    experts (:class:`RouteLog` ``force``), so that no position is moved
+    by a token sent elsewhere upstream, and how many positions each bf16
+    run's own router sends off the f32 run's experts at some layer: a
+    rounding that differs from the f32 run's can, at a near tie of two
+    experts. ``routes`` (card, CPU bf16, CPU f32) own choices per
+    position."""
+    rc, rb, r32 = routes
+    e = logit_errors(got, cpu, ref)
+    e.update(positions=int(r32.shape[0] * r32.shape[1]),
+             card_rerouted=int((~(rc == r32).all(-1)).sum()),
+             cpu_rerouted=int((~(rb == r32).all(-1)).sum()))
+    return e
+
+
+def card_rule_holds(e) -> bool:
+    """6b's rule: the card's bf16 logits at most 1.25x as far from the f32
+    logits as the CPU's bf16 logits on average, at most 2x at the largest.
+    With MoE routes (:func:`routed_errors`), the card's router also sends
+    at most ``REROUTE_SLACK`` of the positions more off the f32 run's
+    experts than the CPU's does."""
+    ok = (e["card_mean"] <= 1.25 * e["cpu_mean"]
+          and e["card_max"] <= 2 * e["cpu_max"])
+    if "positions" in e:
+        ok = ok and e["card_rerouted"] <= e["cpu_rerouted"] + math.ceil(
+            REROUTE_SLACK * e["positions"])
+    return ok
+
+
+def decode_positions(cfg, steps):
+    """The decode steps of :func:`card_vs_cpu_family`: (cache length,
+    positions) runs, each from a fresh cache; the hybrid adds steps on
+    both sides of its shared attention's clamp (a cache of
+    ``sliding_window_long`` slots past 65,536 positions)."""
+    runs = [(steps, list(range(steps)))]
+    if cfg.family == "hybrid":
+        w = cfg.sliding_window_long
+        runs.append((65537, list(range(w - steps // 2, w + steps // 2))))
+    return runs
+
+
+def card_vs_cpu_family(torch, name, seed, steps=8):
+    """One reduced model of 12b with the same weights (drawn on the CPU
+    from a seed, then moved) on the card and on the CPU: a forward of 2 x
+    32 tokens from input seed ``seed`` and ``steps`` decode steps (the
+    hybrid's also past its clamp, :func:`decode_positions`), each under
+    :func:`card_rule_holds`; the MoE archs' bf16 runs take the f32 run's
+    experts, their own recorded beside them (:class:`RouteLog`). Returns
+    {"forward": errors, "decode": errors}."""
+    from repro_torch.models import build_model
+
+    cfg = zoo_config(name, reduced=True)
+    cpu = build_model(cfg, device="cpu", seed=5)
+    cpu32 = build_model(cfg, device="cpu", seed=5)
+    cpu32.float()
+    card = build_model(cfg, device="cpu", seed=5).to("cuda")
+    b = 2
+    toks, extra = zoo_inputs(cfg, b, 32, torch.Generator().manual_seed(seed))
+    fwd, dec, routes = [], [], {"forward": [], "decode": []}
+    f32_f = f32_d = None
+    for m in (cpu32, card, cpu):
+        with RouteLog(force=f32_f) as log_f:
+            fwd.append(m.forward(toks.to(m.device), **{
+                k: v.to(m.device) for k, v in extra.items()}).float().cpu())
+        out_m = []
+        with RouteLog(force=f32_d) as log_d:
+            for s_cache, positions in decode_positions(cfg, steps):
+                cache = m.init_cache(b, s_cache)
+                for i, pos in enumerate(positions):
+                    logits, cache = m.decode_step(
+                        cache, toks[:, i:i + 1].to(m.device), pos)
+                    out_m.append(logits.float().cpu())
+        dec.append(torch.cat(out_m, 1))
+        f32_f = log_f if f32_f is None else f32_f
+        f32_d = log_d if f32_d is None else f32_d
+        if cfg.family == "moe":
+            routes["forward"].append(log_f.per_position(torch, b))
+            routes["decode"].append(log_d.per_position(torch, b, steps))
+    rec = {}
+    for part, runs in (("forward", fwd), ("decode", dec)):
+        r, g, c = runs                        # f32, card, CPU bf16
+        rr = routes[part][1:] + routes[part][:1]
+        e = (routed_errors(torch, g, c, r, rr)
+             if cfg.family == "moe" else logit_errors(g, c, r))
+        need(card_rule_holds(e), f"{name} {part}, input seed {seed}: the "
+             f"card's bf16 logits are further from the f32 logits than the "
+             f"CPU's: {e} (reroute slack {REROUTE_SLACK} of the positions)")
+        rec[part] = e
+    return rec
+
+
+def zoo_card_vs_cpu(torch):
+    """12b: :func:`card_vs_cpu_family` for each reduced model, the MoE
+    archs on ``ZOO_ROUTE_SEEDS`` (a reroute is rare, so its count is read
+    on several batches), the others on the first of them."""
+    out = {}
+    for name in ZOO_REDUCED:
+        moe = zoo_config(name, reduced=True).family == "moe"
+        out[name] = {}
+        for seed in ZOO_ROUTE_SEEDS if moe else ZOO_ROUTE_SEEDS[:1]:
+            rec = card_vs_cpu_family(torch, name, seed)
+            out[name][str(seed)] = rec
+            routed = "".join(
+                f"; {part} positions off the f32 run's experts: card "
+                f"{rec[part]['card_rerouted']}, CPU "
+                f"{rec[part]['cpu_rerouted']} of {rec[part]['positions']}"
+                for part in rec if moe)
+            log(f"  {name} (reduced, seed {seed}): forward |card - f32| mean "
+                f"{rec['forward']['card_mean']:.5f} max "
+                f"{rec['forward']['card_max']:.4f} (CPU bf16 "
+                f"{rec['forward']['cpu_mean']:.5f} / "
+                f"{rec['forward']['cpu_max']:.4f}); decode mean "
+                f"{rec['decode']['card_mean']:.5f} (CPU "
+                f"{rec['decode']['cpu_mean']:.5f}){routed}")
+    return out
+
+
+def fill_cross_cache(torch, model, cache, frames):
+    """Whisper's cross-attention K/V of every decoder layer from the
+    encoder's output over ``frames`` (the serving launcher, like the
+    reference's, leaves them zero; the decode-vs-forward check needs the
+    forward's)."""
+    from repro_torch.models import layers as L
+    cfg = model.cfg
+    with torch.inference_mode():
+        enc = model.encode(frames)
+        b, se, _ = enc.shape
+        for i, lp in enumerate(model.dec_layers):
+            for key, w in (("cross_k", lp.cross_k.w), ("cross_v", lp.cross_v.w)):
+                cache[key][i] = L.matmul(enc, w).reshape(
+                    b, se, cfg.n_kv_heads, cfg.head_dim)
+
+
+def decode_logits(torch, model, toks, extra, steps, zero_state=False):
+    """(B, steps, V) f32 logits of decoding ``toks`` token by token; with
+    ``zero_state`` every cache tensor but whisper's cross K/V is zeroed
+    before each step (the control)."""
+    b = toks.shape[0]
+    cache = model.init_cache(b, toks.shape[1])
+    if "frames" in extra:
+        fill_cross_cache(torch, model, cache, extra["frames"])
+    out = torch.empty((b, steps, model.cfg.vocab), dtype=torch.float32,
+                      device=toks.device)
+
+    def tensors(c):
+        for key, v in c.items():
+            if isinstance(v, dict):
+                yield from tensors(v)
+            elif not key.startswith("cross"):
+                yield v
+
+    for t in range(steps):
+        if zero_state:
+            for v in tensors(cache):
+                v.zero_()
+        logits, cache = model.decode_step(cache, toks[:, t:t + 1], t)
+        out[:, t] = logits[:, 0].float()
+    return out
+
+
+def decode_metrics(torch, dec, full) -> dict:
+    d = (dec - full).abs()
+    a, b = dec.flatten().double(), full.flatten().double()
+    a, b = a - a.mean(), b - b.mean()
+    return {"corr": float((a * b).sum() / (a.norm() * b.norm())),
+            "mean": float(d.mean()),
+            # torch.quantile takes at most 2^24 elements: every k-th
+            "q99": float(torch.quantile(
+                d.flatten()[::math.ceil(d.numel() / 2**24)], 0.99)),
+            "agree": float((dec.argmax(-1) == full.argmax(-1)).float().mean()),
+            "rel_rms": rel_rms(dec, full), "max_abs": float(d.max())}
+
+
+def chunked_blocks(torch, cfg, model) -> dict:
+    """Each block of the first super block at published widths (zamba2's
+    shared attention+MLP block, :func:`shared_block`, and its six Mamba2
+    layers; xLSTM's seven mLSTM layers). A chunked block: N(0, 1) input
+    of B = 2 x S = 512 (two 256-token chunks) through the block's own norm,
+    the chunked forward against the step-by-step decode from zero states
+    (f32), and the control (the states zeroed before each step, its first
+    ``CONTROL_STEPS``), by :func:`decode_metrics` under the recurrent
+    bound."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import ssm
+
+    b, s, dev = ZOO_CHECK_B, ZOO_BLOCK_S, torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    if cfg.family == "hybrid":
+        d_inner, h, n = ssm.mamba_dims(cfg)
+        layers = [(mp.ln, mp.m) for mp in model.blocks[0].mamba]
+        fwd, dec = ssm.mamba2_forward, ssm.mamba2_decode
+        shapes = [((b, h, n, ssm.MAMBA_HEADDIM), torch.float32),
+                  ((b, ssm.MAMBA_CONV - 1, d_inner + 2 * n), torch.bfloat16)]
+    else:
+        d_inner, h, dqk, dv = ssm.xlstm_dims(cfg)
+        layers = [(mp.ln, mp.m) for mp in model.blocks[0].mlstm]
+        fwd, dec = ssm.mlstm_forward, ssm.mlstm_decode
+        shapes = [((b, h, dqk, dv), torch.float32),
+                  ((b, h, dqk), torch.float32)]
+    bound = ZOO_BOUNDS["recurrent"]
+    out = []
+    if cfg.family == "hybrid":
+        out.append(shared_block(torch, cfg, model, gen))
+    for i, (ln, m) in enumerate(layers):
+        with torch.inference_mode():
+            x = L.rmsnorm(torch.randn((b, s, cfg.d_model), generator=gen,
+                                      device=dev).to(torch.bfloat16), ln,
+                          cfg.norm_eps)
+            y = fwd(cfg, m, x).float()
+            runs = []
+            for steps, zero in ((s, False), (CONTROL_STEPS, True)):
+                states = [torch.zeros(sh, dtype=dt, device=dev)
+                          for sh, dt in shapes]
+                ys = []
+                for t in range(steps):
+                    if zero:
+                        for st in states:
+                            st.zero_()
+                    ys.append(dec(cfg, m, x[:, t:t + 1], *states)[0])
+                runs.append(torch.cat(ys, 1).float())
+        rec = {"decode": decode_metrics(torch, runs[0], y),
+               "control": decode_metrics(torch, runs[1], y[:, :CONTROL_STEPS])}
+        need(within(rec["decode"], bound), f"{cfg.name} block {i}: the "
+             f"decode disagrees with the chunked forward: {rec['decode']}, "
+             f"bound {bound}")
+        need(not within(rec["control"], bound), f"{cfg.name} block {i}: "
+             f"the control ({rec['control']}) is inside the bound {bound}")
+        out.append(rec)
+    worst = min(out, key=lambda r: r["decode"]["corr"])["decode"]
+    log(f"  {cfg.name}: {len(out)} blocks, decode vs the "
+        f"forward at B={b} x S={s}, the worst: " + ", ".join(
+            f"{k} {v:.5f}" for k, v in worst.items() if k != "agree")
+        + f" (bound {bound}); controls corr <= "
+        f"{max(r['control']['corr'] for r in out):.5f}")
+    return out
+
+
+def shared_block(torch, cfg, model, gen) -> dict:
+    """The hybrid's shared attention+MLP block at published widths: N(0, 1)
+    input of B = 2 x S = 512, what the block adds to it, its forward
+    (flash) against its step-by-step decode through a K/V cache of S
+    slots, and the control (the cache zeroed before each step, so that a
+    token sees itself alone), by :func:`decode_metrics` under the
+    recurrent bound (the hybrid's). The clamp past 65,536 positions has no
+    forward to hold it to: 12b holds it against the CPU port."""
+    from repro_torch.models import lm
+
+    b, s, dev = ZOO_CHECK_B, ZOO_BLOCK_S, torch.device("cuda")
+    bound = ZOO_BOUNDS["recurrent"]
+    with torch.inference_mode():
+        x = torch.randn((b, s, cfg.d_model), generator=gen,
+                        device=dev).to(torch.bfloat16)
+        y = (lm._block_fwd(cfg, model.shared, x, lm._positions(b, s, dev))
+             .float() - x.float())
+        runs = []
+        for steps, zero in ((s, False), (CONTROL_STEPS, True)):
+            cache = lm._layer(lm._attn_cache(cfg, 1, b, s, dev), 0)
+            ys = []
+            for t in range(steps):
+                if zero:
+                    for v in cache.values():
+                        v.zero_()
+                xt = x[:, t:t + 1]
+                ys.append(lm._block_decode(cfg, model.shared, xt, cache, t)
+                          .float() - xt.float())
+            runs.append(torch.cat(ys, 1))
+    rec = {"block": "shared attention+MLP",
+           "decode": decode_metrics(torch, runs[0], y),
+           "control": decode_metrics(torch, runs[1], y[:, :CONTROL_STEPS])}
+    need(within(rec["decode"], bound), f"{cfg.name} shared block: the "
+         f"decode disagrees with the forward: {rec['decode']}, bound {bound}")
+    need(not within(rec["control"], bound), f"{cfg.name} shared block: the "
+         f"control ({rec['control']}) is inside the bound {bound}")
+    log(f"  {cfg.name} shared attention+MLP block, decode vs forward at "
+        f"B={b} x S={s}: " + ", ".join(
+            f"{k} {v:.5f}" for k, v in rec["decode"].items() if k != "agree")
+        + f"; control corr {rec['control']['corr']:.5f}")
+    return rec
+
+
+def within(m, bound) -> bool:
+    return (m["corr"] > bound["corr"]
+            and m["mean"] < bound.get("mean", math.inf)
+            and m["q99"] < bound.get("q99", math.inf)
+            and m["agree"] > bound.get("agree", 0.0)
+            and m["rel_rms"] <= bound.get("rel_rms", math.inf))
+
+
+@contextlib.contextmanager
+def uncapped_moe(cfg):
+    """Inside the block a MoE layer's capacity is Tg * k: no assignment is
+    dropped, in the forward as in the decode step."""
+    from repro_torch.models import layers
+    orig = layers._moe_cap
+    if cfg.family == "moe":
+        layers._moe_cap = lambda c, tg: tg * c.top_k
+    try:
+        yield
+    finally:
+        layers._moe_cap = orig
+
+
+def zoo_model(torch, build, name, totals) -> dict:
+    """12c for one model at its published widths (random weights from seed
+    0 on the card): a forward of 4 x 2,048 tokens (whisper 4 x 448 over 4 x
+    1,500 frames; internvl2 with 256 patches) twice, the first warming up,
+    with its exact launches; decode against the forward at B=2, S=256
+    (whisper 448) under the family's bound (the MoE's capacity lifted in
+    both, see :func:`uncapped_moe`), and the control (state zeroed each
+    step) outside it; the recurrent families block by block at S=512
+    (:func:`chunked_blocks`), their whole decode logged; one forward and one
+    decode step under sync debug mode "error"; then, warm, ``generate``
+    for 4 requests (prompt 16, gen 32) with its exact launches; the wall,
+    the peaks and the weights' bytes."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import build_model
+
+    cfg = zoo_config(name)
+    expect = zoo_launches(cfg)
+    out = {"config": name, "n_layers": cfg.n_layers, "launches": expect}
+    if name in ZOO_CUT:
+        out["cut"] = ZOO_CUT[name]
+        log(f"  {name}: depth cut to {ZOO_CUT[name]} of its published "
+            f"{get_arch(name).n_layers} layers")
+    t_model = time.perf_counter()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    model = build_model(cfg, seed=0)
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t0
+    out["n_params"] = model.n_params()
+    out["weight_bytes"] = torch.cuda.memory_allocated() - before
+    log(f"  {name}: {out['n_params'] / 1e9:.3f} B parameters, "
+        f"{out['weight_bytes'] / 1e9:.2f} GB, drawn in {out['init_s']:.2f} s")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    peaks = {}
+
+    def counted(label, fn, want):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        build.reset_launches()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peaks[label] = torch.cuda.max_memory_allocated()
+        launches = dict(build.LAUNCHES)
+        want = {k: want.get(k, 0) for k in launches}
+        need(launches == want, f"{name} {label}: launches {launches}, "
+             f"expected {want}")
+        for k, v in launches.items():
+            totals[k] += v
+        return res, wall
+
+    fwd_s = WHISPER_S if cfg.family == "encdec" else FWD_S
+    toks, extra = zoo_inputs(cfg, FWD_B, fwd_s, gen)
+    n_out = fwd_s + (cfg.n_patches if cfg.family == "vlm" else 0)
+    fwd = []
+    for i in range(2):
+        logits, wall = counted(f"forward {i}", lambda: model.forward(
+            toks, **extra), expect["forward"])
+        need(logits.shape == (FWD_B, n_out, cfg.vocab)
+             and logits.dtype == torch.bfloat16,
+             f"{name} forward logits {tuple(logits.shape)} {logits.dtype}")
+        need(bool(torch.isfinite(logits).all()), f"{name}: forward logits "
+             "not finite")
+        del logits
+        fwd.append(wall)
+        log(f"  {name} forward {FWD_B} x {n_out}: {wall * 1e3:.1f} ms "
+            f"({FWD_B * n_out / wall:.0f} tokens/s)")
+    out["forward_s"] = fwd
+    if cfg.family == "ssm":
+        # the sLSTM's loop over the 2,048 steps, one block alone
+        from repro_torch.models import ssm
+        x = torch.randn((FWD_B, fwd_s, cfg.d_model), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        with torch.inference_mode():
+            ssm.slstm_forward(cfg, model.blocks[0].slstm, x)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ssm.slstm_forward(cfg, model.blocks[0].slstm, x)
+            torch.cuda.synchronize()
+        t = time.perf_counter() - t0
+        out["slstm_block_s"] = t
+        log(f"  {name}: one sLSTM block's prefill of {FWD_B} x {fwd_s}: "
+            f"{t * 1e3:.1f} ms; its {len(model.blocks)} blocks "
+            f"{len(model.blocks) * t / min(fwd):.1%} of the forward")
+        del x
+
+    del toks, extra
+
+    # decode through the cache against the forward, and the control
+    s = (WHISPER_S if cfg.family == "encdec" else ZOO_BLOCK_S
+         if cfg.family in ("hybrid", "ssm") else ZOO_CHECK_S)
+    toks, extra = zoo_inputs(cfg, ZOO_CHECK_B, s, gen)
+    if cfg.family == "vlm":
+        extra = {}                     # decode takes tokens only
+    t0 = time.perf_counter()
+    capped = None
+    if cfg.family == "moe":
+        # the forward's capacity-bounded dispatch drops assignments past
+        # Tg * k * 1.25 / E an expert a group (the reference's GShard
+        # schedule); a one-token decode step never does. Both run with
+        # the capacity at Tg * k (nothing dropped) for the check; the
+        # forward as configured is logged beside it
+        capped = decode_metrics(torch, decode_logits(
+            torch, model, toks, extra, s), model.forward(toks).float())
+    with uncapped_moe(cfg):
+        full = model.forward(toks, **extra).float()
+        dec = decode_logits(torch, model, toks, extra, s)
+        ctl = decode_logits(torch, model, toks, extra, CONTROL_STEPS,
+                            zero_state=True)
+    kind = ("recurrent" if cfg.family in ("hybrid", "ssm")
+            else "deep" if cfg.use_mla else "gqa")
+    bound = ZOO_BOUNDS[kind]
+    m = decode_metrics(torch, dec, full)
+    mc = decode_metrics(torch, ctl, full[:, :CONTROL_STEPS])
+    blocks = (chunked_blocks(torch, cfg, model) if kind == "recurrent"
+              else None)
+    out["decode_vs_forward"] = {"B": ZOO_CHECK_B, "S": s, "bound": bound,
+                                "metrics": m, "control": mc,
+                                "with_capacity": capped,
+                                "blocks": blocks,
+                                "seconds": time.perf_counter() - t0}
+    if capped is not None:
+        log(f"  {name} decode vs the forward at its configured capacity "
+            "(not held to the bound): "
+            + ", ".join(f"{k} {v:.5f}" for k, v in capped.items()))
+    log(f"  {name} decode vs forward, B={ZOO_CHECK_B} x S={s}: "
+        + ", ".join(f"{k} {v:.5f}" for k, v in m.items())
+        + f" (bound {bound}); control (state zeroed each step, "
+        f"{CONTROL_STEPS} steps): "
+        + ", ".join(f"{k} {v:.5f}" for k, v in mc.items()))
+    if blocks is None:
+        need(within(m, bound), f"{name}: decode disagrees with the forward: "
+             f"{m}, bound {bound}")
+        need(not within(mc, bound), f"{name}: the control ({mc}) is inside "
+             f"the bound {bound}: the check is not tight")
+    del full, dec, ctl
+
+    cache = model.init_cache(ZOO_CHECK_B, s)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        model.decode_step(cache, toks[:, :1], 0)
+        model.forward(toks, **extra)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    log(f"  {name}: one decode step and one forward ran under sync debug "
+        "mode 'error': no host sync")
+
+    prompt = torch.randint(0, cfg.vocab, (SERVE_B, SERVE_P), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    steps = SERVE_P + SERVE_G - 1
+    # warm: the decode check above ran the same decode step
+    got, wall = counted("generate", lambda: generate(model, prompt, SERVE_G),
+                        {"rmsnorm": steps * expect["decode_step"]["rmsnorm"]})
+    need(got.shape == (SERVE_B, SERVE_G) and got.dtype == torch.int32,
+         f"{name} generated {tuple(got.shape)} {got.dtype}")
+    host = got.cpu()
+    need(bool(((host >= 0) & (host < cfg.vocab)).all()),
+         f"{name}: generated token ids out of range")
+    out["serve"] = {"wall_s": wall, "ms_per_step": wall / steps * 1e3,
+                    "tokens_per_s": SERVE_B * SERVE_G / wall}
+    log(f"  {name} generate {SERVE_B} x ({SERVE_P} + {SERVE_G}): "
+        f"{wall:.3f} s, {wall / steps * 1e3:.2f} ms/step, "
+        f"{SERVE_B * SERVE_G / wall:.1f} tokens/s; sample "
+        f"{host[0, :8].tolist()}")
+    out["peak_bytes"] = peaks
+    log(f"  {name} peak device memory: " + ", ".join(
+        f"{k} {v / 1e9:.2f} GB" for k, v in peaks.items()))
+    del model, cache, toks, extra
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_model
+    return out
+
+
+def zoo_phase(torch, build) -> tuple:
+    """Phase 12: 12a the kernels at the new families' shapes, 12b the
+    reduced models card against CPU, 12c each family at published widths.
+    Returns the launches of 12c's counted runs and the phase's record."""
+    t_phase = time.perf_counter()
+    out = {}
+    log("[12a] flash attention and RMSNorm at the new families' shapes")
+    out["kernels"] = zoo_kernel_checks(torch)
+    build.reset_launches()
+    log("[12b] card port vs CPU port on the reduced "
+        + ", ".join(ZOO_REDUCED))
+    out["card_vs_cpu"] = zoo_card_vs_cpu(torch)
+    build.reset_launches()
+    totals = {name: 0 for name in build.LAUNCHES}
+    for name in ZOO:
+        log(f"[12c] {name} at its published widths")
+        out[name] = zoo_model(torch, build, name, totals)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 12: {out['seconds']:.1f} s")
+    return totals, out
 
 
 def kernel_times(torch, np) -> dict:
@@ -4028,6 +4814,13 @@ def main(argv=None) -> int:
     oracle_totals, extra["oracles"] = oracle_phase(torch, np, run, RunConfig,
                                                    G, build)
     for name, v in oracle_totals.items():
+        totals[name] += v
+
+    # ---- 12. the rest of the model zoo's serving path ----------------------
+    log("[12] the model zoo's other families: MoE with MLA, the Mamba2 "
+        "hybrid, xLSTM, Whisper, the VLM")
+    zoo_totals, extra["zoo"] = zoo_phase(torch, build)
+    for name, v in zoo_totals.items():
         totals[name] += v
     for row in kernels:
         row["launches"] = totals[row["name"]]

@@ -71,7 +71,7 @@ _SIGNATURES = {
                                     _P],
     "repro_rmsnorm": [_P, _P, _P, _L, _I, _F, _I, _I, _P],
     "repro_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I,
-                              _I, _P],
+                              _I, _I, _P],
 }
 
 class KernelCompileError(RuntimeError):

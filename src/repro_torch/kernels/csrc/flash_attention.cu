@@ -3,7 +3,9 @@
 //   their strides (the last dimension contiguous) -> out (B, Sq, H, D)
 //   contiguous, in q's type. Head h reads KV head h / (H / KV). The causal
 //   mask keeps key j for query i when i >= j, both counted from 0
-//   (start-aligned also when Sq != Sk). Scores, running max, running sum and
+//   (start-aligned also when Sq != Sk); a window w > 0 also drops key j when
+//   j <= i - w (the JAX model's _sdpa), and the key tiles that lie wholly
+//   before a q tile's window are never loaded. Scores, running max, running sum and
 //   accumulator are f32, and so is the scale D^-1/2 (bf16: on the scores;
 //   f32: on q as it is loaded).
 //
@@ -89,7 +91,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        int sk, int n_heads, int n_kv, int d, int64_t qsb,
                        int64_t qss, int64_t qsh, int64_t ksb, int64_t kss,
                        int64_t ksh, int64_t vsb, int64_t vss, int64_t vsh,
-                       int causal, float scale) {
+                       int causal, int window, float scale) {
   constexpr int LD = DMAX + 1;
   constexpr int NC = DMAX / 16;  // accumulator columns per thread
   extern __shared__ float smem[];
@@ -130,7 +132,9 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q_last = min(q0 + kBQ, sq) - 1;
   const int k_end = causal ? min(sk, q_last + 1) : sk;
   const int n_tiles = (k_end + kBK - 1) / kBK;
-  for (int t = 0; t < n_tiles; ++t) {
+  // the first key row q0's window keeps
+  const int t_first = window > 0 ? max(0, q0 - window + 1) / kBK : 0;
+  for (int t = t_first; t < n_tiles; ++t) {
     const int k0 = t * kBK;
     __syncthreads();  // the previous tile's PV pass is done with sK, sV, sS
     for (int i = tid; i < kBK * DMAX; i += kThreads) {
@@ -169,7 +173,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int j = 0; j < 4; ++j) {
         const int col = cg + 16 * j;
         const int kpos = k0 + col;
-        const bool ok = kpos < sk && (!causal || kpos <= q0 + row);
+        const bool ok = kpos < sk && (!causal || kpos <= q0 + row) &&
+                        (window <= 0 || kpos > q0 + row - window);
         sS[row * kLDS + col] = ok ? s[i][j] : -INFINITY;
       }
     }
@@ -533,7 +538,7 @@ flash_attention_tc(const __grid_constant__ CUtensorMap tmq,
                    const __grid_constant__ CUtensorMap tmk,
                    const __grid_constant__ CUtensorMap tmv,
                    __nv_bfloat16* __restrict__ out, int sq, int sk,
-                   int n_heads, int n_kv, int d, int causal,
+                   int n_heads, int n_kv, int d, int causal, int window,
                    float scale_log2) {
   using T = TcShape<DP>;
   constexpr int BK = T::BK;
@@ -559,6 +564,9 @@ flash_attention_tc(const __grid_constant__ CUtensorMap tmq,
   const int q_last = min(q0 + kTcBQ, sq) - 1;
   const int k_end = causal ? min(sk, q_last + 1) : sk;
   const int n_tiles = (k_end + BK - 1) / BK;
+  // tiles before the one holding the first key row q0's window keeps are
+  // skipped; i = t - t_first counts the tiles a CTA loads (ring stage, parity)
+  const int t_first = window > 0 ? max(0, q0 - window + 1) / BK : 0;
 
   if (tid == 0) {
     mbar_init(q_full, 1);
@@ -578,8 +586,8 @@ flash_attention_tc(const __grid_constant__ CUtensorMap tmq,
 #pragma unroll
       for (int a = 0; a < T::ATOMS; ++a)
         tma_load(sQ + a * T::Q_ATOM, &tmq, q_full, a * 64, q0, head, b);
-      for (int t = 0; t < n_tiles; ++t) {
-        const int s = t % kTcStages, use = t / kTcStages;
+      for (int t = t_first; t < n_tiles; ++t) {
+        const int s = (t - t_first) % kTcStages, use = (t - t_first) / kTcStages;
         if (use > 0) mbar_wait(kv_empty + 8 * s, (use - 1) & 1);
         const uint32_t kf = k_full + 8 * s, vf = v_full + 8 * s;
         mbar_expect_tx(kf, T::KV_BYTES);
@@ -613,9 +621,9 @@ flash_attention_tc(const __grid_constant__ CUtensorMap tmq,
   float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
 
   mbar_wait(q_full, 0);
-  for (int t = 0; t < n_tiles; ++t) {
-    const int s = t % kTcStages;
-    const uint32_t parity = (t / kTcStages) & 1;
+  for (int t = t_first; t < n_tiles; ++t) {
+    const int s = (t - t_first) % kTcStages;
+    const uint32_t parity = ((t - t_first) / kTcStages) & 1;
     const int k0 = t * BK;
 
     // S = Q K^T
@@ -632,13 +640,17 @@ flash_attention_tc(const __grid_constant__ CUtensorMap tmq,
     wg_wait_all();
     pin(sc);
 
-    // the diagonal tile and the ragged last tile: mask
-    if (k0 + BK > sk || (causal && k0 + BK - 1 > q0 + wg * 64)) {
+    // the diagonal tile, the ragged last tile and the window's first tiles:
+    // mask
+    if (k0 + BK > sk || (causal && k0 + BK - 1 > q0 + wg * 64) ||
+        (window > 0 && k0 <= q0 + wg * 64 + 63 - window)) {
 #pragma unroll
       for (int i = 0; i < NS; ++i) {
         const int col = k0 + (i / 4) * 8 + c + (i % 2);
         const int row = r0 + 8 * ((i / 2) % 2);
-        if (col >= sk || (causal && col > row)) sc[i] = -INFINITY;
+        if (col >= sk || (causal && col > row) ||
+            (window > 0 && col <= row - window))
+          sc[i] = -INFINITY;
       }
     }
 
@@ -737,7 +749,7 @@ cudaError_t allow_smem(Kernel kernel, int bytes, bool* done) {
 template <typename T, int DMAX>
 int launch(const void* q, const void* k, const void* v, void* out, int b,
            int sq, int sk, int h, int kv, int d, const long long* st,
-           int causal, cudaStream_t stream) {
+           int causal, int window, cudaStream_t stream) {
   auto kernel = flash_attention_kernel<T, DMAX>;
   const size_t smem = smem_bytes<DMAX>();
   static bool smem_set[64] = {};
@@ -747,18 +759,18 @@ int launch(const void* q, const void* k, const void* v, void* out, int b,
   kernel<<<grid, kThreads, smem, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (T*)out, sq, sk, h, kv, d,
       st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], causal,
-      1.0f / sqrtf((float)d));
+      window, 1.0f / sqrtf((float)d));
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int dispatch_d(const void* q, const void* k, const void* v, void* out, int b,
                int sq, int sk, int h, int kv, int d, const long long* st,
-               int causal, cudaStream_t s) {
-  if (d <= 32) return launch<T, 32>(q, k, v, out, b, sq, sk, h, kv, d, st, causal, s);
-  if (d <= 64) return launch<T, 64>(q, k, v, out, b, sq, sk, h, kv, d, st, causal, s);
-  if (d <= 128) return launch<T, 128>(q, k, v, out, b, sq, sk, h, kv, d, st, causal, s);
-  return launch<T, 256>(q, k, v, out, b, sq, sk, h, kv, d, st, causal, s);
+               int causal, int w, cudaStream_t s) {
+  if (d <= 32) return launch<T, 32>(q, k, v, out, b, sq, sk, h, kv, d, st, causal, w, s);
+  if (d <= 64) return launch<T, 64>(q, k, v, out, b, sq, sk, h, kv, d, st, causal, w, s);
+  if (d <= 128) return launch<T, 128>(q, k, v, out, b, sq, sk, h, kv, d, st, causal, w, s);
+  return launch<T, 256>(q, k, v, out, b, sq, sk, h, kv, d, st, causal, w, s);
 }
 
 // cuTensorMapEncodeTiled, looked up through the CUDA runtime (no -lcuda).
@@ -814,7 +826,7 @@ int tensor_map(CUtensorMap* map, const void* base, int d, int s, int heads,
 template <int DP>
 int launch_tc(const void* q, const void* k, const void* v, void* out, int b,
               int sq, int sk, int h, int kv, int d, const long long* st,
-              int causal, cudaStream_t stream) {
+              int causal, int window, cudaStream_t stream) {
   using T = TcShape<DP>;
   static bool smem_set[64] = {};
   cudaError_t err = allow_smem(flash_attention_tc<DP>, T::SMEM, smem_set);
@@ -826,7 +838,7 @@ int launch_tc(const void* q, const void* k, const void* v, void* out, int b,
   if (bad) return bad;
   const dim3 grid((sq + kTcBQ - 1) / kTcBQ, h, b);
   flash_attention_tc<DP><<<grid, kTcThreads, T::SMEM, stream>>>(
-      mq, mk, mv, (__nv_bfloat16*)out, sq, sk, h, kv, d, causal,
+      mq, mk, mv, (__nv_bfloat16*)out, sq, sk, h, kv, d, causal, window,
       1.4426950408889634f / sqrtf((float)d));
   return (int)cudaGetLastError();
 }
@@ -838,14 +850,15 @@ int launch_tc(const void* q, const void* k, const void* v, void* out, int b,
 // contiguous); out: b x sq x h x d contiguous. dtype 0 = f32 (CUDA cores),
 // 1 = bf16 (tensor cores, TMA: each base 16-byte aligned and each stride a
 // multiple of 8 elements, which the wrapper ensures); d a multiple of 8 up
-// to 256 and h a multiple of kv (the wrapper checks). Sk = 0 gives zeros.
+// to 256 and h a multiple of kv (the wrapper checks). window > 0 keeps key j
+// for query i only when j > i - window; 0 keeps every key. Sk = 0 gives zeros.
 // Returns cudaGetLastError() after the launch, or kTensorMapError + the
 // encoder's CUresult when a bf16 tensor map cannot be built.
 extern "C" int repro_flash_attention(const void* q, const void* k,
                                      const void* v, void* out, int b, int sq,
                                      int sk, int h, int kv, int d,
                                      const void* strides, int causal,
-                                     int dtype, void* stream) {
+                                     int window, int dtype, void* stream) {
   if (b <= 0 || sq <= 0 || h <= 0 || d <= 0) return (int)cudaGetLastError();
   const long long* st = (const long long*)strides;
   const cudaStream_t s = (cudaStream_t)stream;
@@ -853,10 +866,14 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
     if (sk <= 0)
       return (int)cudaMemsetAsync(out, 0, (size_t)b * sq * h * d * 2, s);
     if (d <= 64)
-      return launch_tc<64>(q, k, v, out, b, sq, sk, h, kv, d, st, causal, s);
+      return launch_tc<64>(q, k, v, out, b, sq, sk, h, kv, d, st, causal,
+                           window, s);
     if (d <= 128)
-      return launch_tc<128>(q, k, v, out, b, sq, sk, h, kv, d, st, causal, s);
-    return launch_tc<256>(q, k, v, out, b, sq, sk, h, kv, d, st, causal, s);
+      return launch_tc<128>(q, k, v, out, b, sq, sk, h, kv, d, st, causal,
+                            window, s);
+    return launch_tc<256>(q, k, v, out, b, sq, sk, h, kv, d, st, causal,
+                          window, s);
   }
-  return dispatch_d<float>(q, k, v, out, b, sq, sk, h, kv, d, st, causal, s);
+  return dispatch_d<float>(q, k, v, out, b, sq, sk, h, kv, d, st, causal,
+                           window, s);
 }

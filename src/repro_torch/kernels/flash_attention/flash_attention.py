@@ -9,13 +9,17 @@ and the GQA wrapper of ``ops.py``).
     materialised. Any Sq and Sk; D a multiple of 8 up to 256. bf16 runs on
     the tensor cores (wgmma, TMA) and rounds the softmax weights to bf16
     before the weighted sum, as the TPU kernel's MXU does; f32 runs on the
-    CUDA cores. It takes its plain version for a CPU tensor and launches
-    the kernel for a CUDA tensor; anything else raises.
+    CUDA cores. ``window`` w > 0 also drops key j for query i where
+    j <= i - w (the JAX model's ``_sdpa``), and the kernel skips the key
+    tiles wholly before a q tile's window. It takes its plain version for
+    a CPU tensor and launches the kernel for a CUDA tensor; anything else
+    raises.
   * :func:`flash_attention_ref` — the plain version, the same function:
     f32 scores scaled by D^-1/2, the start-aligned causal mask
-    ``q_pos >= k_pos`` (positions from 0, also when Sq != Sk), an f32
-    softmax and an f32 weighted sum, rounded once to q's type (the
-    reference's ``ref.py:attention_ref`` with the GQA mapping).
+    ``q_pos >= k_pos`` (positions from 0, also when Sq != Sk) and the
+    window's ``k_pos > q_pos - window``, an f32 softmax and an f32 weighted
+    sum, rounded once to q's type (the reference's ``ref.py:attention_ref``
+    with the GQA mapping).
 """
 from __future__ import annotations
 
@@ -31,22 +35,26 @@ MAX_HEAD_DIM = 256
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        causal: bool = True):
+                        causal: bool = True, window: int = 0):
     """Plain version: q (B, Sq, H, D), k/v (B, Sk, KV, D) -> (B, Sq, H, D)."""
     b, sq, h, d = q.shape
     sk, kv = k.shape[1], k.shape[2]
     qg = q.float().reshape(b, sq, kv, h // kv, d)
     scores = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) * d ** -0.5
-    if causal:
-        mask = (torch.arange(sq, device=q.device)[:, None]
-                >= torch.arange(sk, device=q.device)[None, :])
+    qpos = torch.arange(sq, device=q.device)[:, None]
+    kpos = torch.arange(sk, device=q.device)[None, :]
+    mask = qpos >= kpos if causal else None
+    if window:
+        near = kpos > qpos - window
+        mask = near if mask is None else mask & near
+    if mask is not None:
         scores = scores.masked_fill(~mask, float("-inf"))
     w = torch.softmax(scores, dim=-1)
     o = torch.einsum("bhgqk,bkhd->bqhgd", w, v.float())
     return o.reshape(b, sq, h, d).to(q.dtype)
 
 
-def _check(q, k, v):
+def _check(q, k, v, window):
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise TypeError("expected q (B, Sq, H, D) and k, v (B, Sk, KV, D)")
     if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -66,6 +74,9 @@ def _check(q, k, v):
                          f"to {MAX_HEAD_DIM}")
     if max(b, h) > 65535 or max(sq, k.shape[1]) >= 2**31:
         raise ValueError(f"B = {b}, H = {h} or S exceed the launch grid")
+    if not 0 <= window < 2**31:
+        raise ValueError(f"window {window}: expected 0 (none) or a positive "
+                         "int32")
 
 
 def tma_readable(t: torch.Tensor) -> bool:
@@ -90,7 +101,7 @@ def kernel_strides(t: torch.Tensor):
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         causal: bool = True):
+                         causal: bool = True, window: int = 0):
     """q (B, Sq, H, D), k/v (B, Sk, KV, D) -> (B, Sq, H, D) in q's type.
 
     Inputs are read where they lie, at their strides. A bf16 input that TMA
@@ -99,8 +110,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     copied to fresh contiguous memory; an f32 input only when its last
     dimension is not contiguous."""
     if not on_cuda(q):
-        return flash_attention_ref(q, k, v, causal)
-    _check(q, k, v)
+        return flash_attention_ref(q, k, v, causal, window)
+    _check(q, k, v, window)
     if q.dtype == torch.bfloat16:
         q, k, v = (t if tma_readable(t)
                    else t.clone(memory_format=torch.contiguous_format)
@@ -121,6 +132,6 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         build.check(lib.repro_flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             b, sq, sk, h, kv, d, ctypes.addressof(strides), int(causal),
-            DTYPES[q.dtype], build.stream_of(q),
+            int(window), DTYPES[q.dtype], build.stream_of(q),
         ), "flash_attention")
     return out

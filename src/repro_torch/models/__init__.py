@@ -1,4 +1,4 @@
-"""The model zoo's dense decoder (port of ``repro.models``)."""
-from repro_torch.models.lm import build_model, model_from_numpy
+"""The model zoo (port of ``repro.models``): every family of the registry."""
+from repro_torch.models.lm import build_model, make_batch, model_from_numpy
 
-__all__ = ["build_model", "model_from_numpy"]
+__all__ = ["build_model", "make_batch", "model_from_numpy"]

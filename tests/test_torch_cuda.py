@@ -10,6 +10,8 @@ port is installed:
 """
 import dataclasses
 import math
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -853,6 +855,67 @@ def test_flash_kernel_matches_plain_version(cuda_device, b, sq, sk, h, kv, d,
     assert err <= 1.5 * sdpa_err, (err, sdpa_err)
 
 
+def _keep_mask(sq, sk, causal, window, dev):
+    i = torch.arange(sq, device=dev)[:, None]
+    j = torch.arange(sk, device=dev)[None, :]
+    keep = i >= j if causal else torch.ones((sq, sk), dtype=torch.bool,
+                                            device=dev)
+    return keep & (j > i - window) if window else keep
+
+
+@pytest.mark.parametrize("dtype", MODEL_DTYPES)
+@pytest.mark.parametrize("b,sq,sk,h,kv,d,causal,window", [
+    (1, 2048, 2048, 8, 2, 128, True, 512),   # the hybrid's window, tiles skipped
+    (2, 300, 300, 4, 2, 80, True, 100),      # zamba2's head dim, ragged
+    (1, 200, 200, 4, 4, 64, False, 37),      # a window without the mask
+    (1, 40, 40, 2, 2, 64, True, 1),          # each query keeps only itself
+    (1, 300, 300, 8, 8, 192, True, 0),       # MLA: D = 192 (v padded), DP 256
+    (2, 1500, 1500, 8, 8, 64, False, 0),     # whisper's encoder
+    (2, 448, 1500, 8, 8, 64, False, 0),      # whisper's cross-attention
+])
+def test_flash_kernel_window_and_model_shapes(cuda_device, b, sq, sk, h, kv,
+                                              d, causal, window, dtype):
+    """The window and the new families' shapes against the plain version,
+    under the bounds of ``test_flash_kernel_matches_plain_version``; SDPA
+    is given the same mask."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    q, k, v = _flash_inputs(g, cuda_device, dtype, b, sq, sk, h, kv, d,
+                            "contiguous")
+    before = build.LAUNCHES["flash_attention"]
+    got = flash_attention_cuda(q, k, v, causal, window)
+    want = flash_attention_ref(q, k, v, causal, window).float()
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["flash_attention"] == before + 1
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+        return
+    torch.testing.assert_close(got.float(), want, atol=2e-2, rtol=2e-2)
+    sdpa = torch.nn.functional.scaled_dot_product_attention(
+        *(t.transpose(1, 2) for t in (q, k, v)),
+        attn_mask=_keep_mask(sq, sk, causal, window, cuda_device),
+        enable_gqa=True).transpose(1, 2).float()
+    err, sdpa_err = ((x - want).abs().max().item()
+                     for x in (got.float(), sdpa))
+    assert err <= 1.5 * sdpa_err, (err, sdpa_err)
+
+
+@pytest.mark.parametrize("dtype", MODEL_DTYPES)
+def test_mla_narrow_v_route_on_the_card(cuda_device, dtype):
+    """MLA's prefill route at D = 192 with v of 128 padded, on the card
+    against the plain version of the same route."""
+    from repro_torch.models.layers import attention_narrow_v
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    q, k = (torch.randn((2, 333, 8, 192), generator=g, device=cuda_device)
+            .to(dtype) for _ in range(2))
+    v = torch.randn((2, 333, 8, 128), generator=g, device=cuda_device).to(dtype)
+    got = attention_narrow_v(q, k, v)
+    want = attention_narrow_v(q.cpu(), k.cpu(), v.cpu()).float()
+    assert got.shape == (2, 333, 8, 128)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float().cpu(), want, atol=tol, rtol=tol)
+
+
 def test_flash_kernel_reads_strided_inputs(cuda_device):
     """q, k and v as views of one fused (B, S, H + 2 KV, D) projection."""
     g = torch.Generator(device=cuda_device).manual_seed(2)
@@ -907,6 +970,53 @@ def test_card_model_matches_cpu_model(cuda_device, name):
     assert ec.max() <= 2 * eb.max(), (ec.max(), eb.max())
     assert build.LAUNCHES["flash_attention"] == before["flash_attention"] + 4
     assert build.LAUNCHES["rmsnorm"] == before["rmsnorm"] + 9
+
+
+#: the new families' launches of one reduced forward (rmsnorm, flash)
+FAMILY_LAUNCHES = {"deepseek-v2-236b": (4 * 4 + 1, 4),
+                   "llama4-maverick-400b-a17b": (2 * 4 + 1, 4),
+                   "internvl2-26b": (2 * 4 + 1, 4),
+                   "zamba2-2.7b": (2 * 4 + 2 * 2 + 1, 2),
+                   "xlstm-1.3b": (2 * 4 + 1, 0),
+                   "whisper-base": (2 * 2 + 1 + 3 * 4 + 1, 2 + 2 * 4)}
+
+
+def _chip_smoke():
+    """``chip_smoke.py`` (the repository's root), whose 12b comparison the
+    family test runs: one rule and one route record for both."""
+    root = str(Path(__file__).resolve().parents[1])
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    import chip_smoke
+    return chip_smoke
+
+
+@pytest.mark.parametrize("name", sorted(FAMILY_LAUNCHES))
+def test_card_family_matches_cpu_model(cuda_device, name):
+    """Each new family reduced, the same weights on the card and on the
+    CPU: the card's bf16 logits of a forward and of 8 decode steps are as
+    close to the CPU's f32 logits as the CPU's own bf16 logits, the MoE
+    archs' on the positions that keep the f32 run's experts and with no
+    more than chip_smoke's slack of extra reroutes
+    (``chip_smoke.card_vs_cpu_family``, 12b's first input batch), and the
+    forward launches each kernel as often as the config says."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models import make_batch
+    cfg = ARCHS[name].reduced()
+    card = build_model(cfg, device="cpu", seed=5).to(cuda_device)
+    batch = make_batch(cfg, ShapeConfig("t", 32, 2, "train"),
+                       torch.Generator().manual_seed(6))
+    extra = {k: v for k, v in batch.items() if k in ("patch_embeds", "frames")}
+    before = dict(build.LAUNCHES)
+    card.forward(batch["tokens"].to(cuda_device), **{
+        k: v.to(cuda_device) for k, v in extra.items()})
+    torch.cuda.synchronize()
+    norms, flashes = FAMILY_LAUNCHES[name]
+    assert build.LAUNCHES["rmsnorm"] - before["rmsnorm"] == norms
+    assert (build.LAUNCHES["flash_attention"]
+            - before["flash_attention"]) == flashes
+    smoke = _chip_smoke()
+    smoke.card_vs_cpu_family(torch, name, smoke.ZOO_ROUTE_SEEDS[0])
 
 
 def test_card_calibration_keeps_the_kernels(cuda_device, monkeypatch):

@@ -24,6 +24,7 @@ from repro.configs import base as jbase
 from repro.configs.registry import ARCHS as JARCHS
 from repro.kernels.flash_attention.ref import attention_ref
 from repro.kernels.rmsnorm import rmsnorm as jrmsnorm
+from repro.models import layers as JL
 from repro.models.layers import rmsnorm as jrmsnorm_model
 from repro_torch import configs
 from repro_torch.configs import base as tbase
@@ -33,6 +34,7 @@ from repro_torch.kernels.flash_attention.flash_attention import (
 )
 from repro_torch.kernels.rmsnorm import rmsnorm
 from repro_torch.kernels.rmsnorm.rmsnorm import rmsnorm_cuda, rmsnorm_ref
+from repro_torch.models.layers import attention_narrow_v
 
 JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -188,6 +190,57 @@ def test_flash_gqa_mapping_matches_reference(b, s, h, kv, d):
     np.testing.assert_array_equal(
         got.numpy(),
         flash_attention_ref(*(torch.from_numpy(a) for a in (q, k, v))).numpy())
+
+
+@pytest.mark.parametrize("causal,window,sq,sk", [
+    (True, 1, 40, 40),            # each query keeps only itself
+    (True, 5, 40, 40),
+    (True, 64, 200, 200),         # past a 128-row tile: the kernel skips tiles
+    (False, 7, 30, 30),           # a window without the causal mask
+    (True, 6, 20, 33),            # Sq != Sk, start-aligned
+])
+def test_flash_window_matches_reference_sdpa(causal, window, sq, sk):
+    """The window of the plain version (the wrapper's CPU route) against
+    the reference's ``_sdpa``, which masks k_pos <= q_pos - window, with
+    GQA (4 heads over 2), f32 at the JAX package's 2e-5."""
+    rng = np.random.default_rng(4)
+    b, h, kv, d = 2, 4, 2, 16
+    q = rng.standard_normal((b, sq, h, d)).astype(np.float32)
+    k = rng.standard_normal((b, sk, kv, d)).astype(np.float32)
+    v = rng.standard_normal((b, sk, kv, d)).astype(np.float32)
+    pos = lambda s: jnp.broadcast_to(jnp.arange(s, dtype=jnp.int32)[None], (b, s))
+    want = JL._sdpa(jnp.asarray(q).reshape(b, sq, kv, h // kv, d),
+                    jnp.asarray(k), jnp.asarray(v), pos(sq), pos(sk),
+                    d ** -0.5, causal, window)
+    want = _f32(want).reshape(b, sq, h, d)
+    got = flash_attention(*(torch.from_numpy(a) for a in (q, k, v)),
+                          causal=causal, window=window)
+    np.testing.assert_allclose(_f32(got), want, atol=2e-5, rtol=2e-5)
+    if window < sk:
+        full = flash_attention_ref(*(torch.from_numpy(a) for a in (q, k, v)),
+                                   causal)
+        assert np.abs(_f32(full) - _f32(got)).max() > 1e-2   # the window acts
+
+
+@pytest.mark.parametrize("s,dk,dv", [(40, 24, 16), (1024, 192, 128)])
+def test_mla_narrow_v_route_matches_blocked_attention(s, dk, dv):
+    """MLA's route through the flash kernel (v zero-padded to the q/k head
+    dim, the output sliced back) against the reference's
+    ``blocked_attention`` with Dk != Dv (at S = 1,024 over its 512-query
+    blocks), the scale Dk^-1/2 in both; f32 at 2e-5."""
+    rng = np.random.default_rng(5)
+    b, h = 1, 3
+    q = rng.standard_normal((b, s, h, dk)).astype(np.float32)
+    k = rng.standard_normal((b, s, h, dk)).astype(np.float32)
+    v = rng.standard_normal((b, s, h, dv)).astype(np.float32)
+    pos = jnp.broadcast_to(jnp.arange(s, dtype=jnp.int32)[None], (b, s))
+    want = JL.blocked_attention(jnp.asarray(q)[:, :, :, None, :],
+                                jnp.asarray(k), jnp.asarray(v), pos,
+                                dk ** -0.5)
+    want = _f32(want).reshape(b, s, h, dv)
+    got = attention_narrow_v(*(torch.from_numpy(a) for a in (q, k, v)))
+    assert got.shape == (b, s, h, dv)
+    np.testing.assert_allclose(_f32(got), want, atol=2e-5, rtol=2e-5)
 
 
 def _tiled_bf16_flash(q, k, v, causal=True, block_k=128):

@@ -2,7 +2,9 @@
 against the JAX package's on the CPU: layers, whole forward, decode
 through the KV cache and greedy generation, on the reduced configs of the
 three dense archs, with the JAX weights carried across by
-``model_from_numpy``.
+``model_from_numpy``; and every other family of the registry (held to the
+JAX package in ``test_torch_models_{moe,recurrent}.py``) builds and decodes
+on the CPU.
 
 Tolerances, each with its reason:
 
@@ -36,9 +38,10 @@ import torch_parity  # noqa: F401  (one torch thread per test process)
 from repro.configs.registry import ARCHS as JARCHS
 from repro.models import build_model as jbuild
 from repro.models import layers as JL
+from repro_torch.configs.base import ShapeConfig
 from repro_torch.configs.registry import ARCHS
 from repro_torch.launch import serve
-from repro_torch.models import build_model, lm, model_from_numpy
+from repro_torch.models import build_model, lm, make_batch, model_from_numpy
 from repro_torch.models import layers as TL
 
 DENSE = ["qwen2.5-14b", "smollm-135m", "stablelm-1.6b"]
@@ -221,16 +224,42 @@ def test_generate_matches_reference(pair):
     assert compared >= 10        # most steps are decided by a clear margin
 
 
+def _family_cfg(name):
+    """A reduced arch of the registry, or ``"mla"``: the reduced dense
+    qwen2.5-14b with DeepSeek-V2's latent attention."""
+    if name == "mla":
+        return dataclasses.replace(ARCHS["qwen2.5-14b"], use_mla=True,
+                                   kv_lora=512, q_lora=1536).reduced()
+    return ARCHS[name].reduced()
+
+
 @pytest.mark.parametrize("name", sorted(n for n in ARCHS
                                         if ARCHS[n].family != "dense")
                          + ["mla"])
-def test_unported_families_raise(name):
-    cfg = (dataclasses.replace(ARCHS["qwen2.5-14b"].reduced(), use_mla=True)
-           if name == "mla" else ARCHS[name].reduced())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model_from_numpy(cfg, {}, device="cpu")
+def test_every_family_builds_and_decodes_on_the_cpu(name):
+    """Every family the registry holds beside the dense one, and MLA on a
+    dense decoder: built on the CPU, one forward (with the family's patch
+    embeddings or audio frames) and one decode step through a fresh cache,
+    each of the expected shape, finite, under inference mode."""
+    cfg = _family_cfg(name)
+    m = build_model(cfg, device="cpu", seed=1)
+    gen = torch.Generator().manual_seed(2)
+    s = 16                  # a multiple of the reduced ssm_chunk
+    batch = make_batch(cfg, ShapeConfig("t", s, 2, "train"), gen)
+    extra = {k: v for k, v in batch.items()
+             if k in ("patch_embeds", "frames")}
+    assert set(extra) == {"vlm": {"patch_embeds"}, "encdec": {"frames"}}.get(
+        cfg.family, set())
+    logits = m.forward(batch["tokens"], **extra)
+    n = cfg.n_patches if cfg.family == "vlm" else 0
+    assert logits.shape == (2, s + n, cfg.vocab)
+    assert logits.dtype == torch.bfloat16 and logits.is_inference()
+    assert bool(torch.isfinite(logits.float()).all())
+    cache = m.init_cache(2, s)
+    step, cache2 = m.decode_step(cache, batch["tokens"][:, :1], 0)
+    assert cache2 is cache
+    assert step.shape == (2, 1, cfg.vocab)
+    assert bool(torch.isfinite(step.float()).all())
 
 
 def test_build_model_needs_a_card_unless_cpu_is_asked(monkeypatch):
