@@ -241,6 +241,28 @@ Phases, in order; any failure exits non-zero and prints no result:
         "error"; ``generate`` timed once, after the decode check; the
         wall, the peaks and the weights' bytes, each model freed before the
         next.
+  13. training (``repro_torch.training``, ``repro_torch.launch.train``):
+     a. the RMSNorm backward kernel at smollm-135m's and stablelm-1.6b's
+        norms (1,024 x 576, 8,192 x 2,048), the flash-attention backward
+        kernels and the forward's lse at the training shapes (stablelm
+        4 x 2,048 with 32 heads of 64, smollm 8 x 128 with 9 over 3
+        heads, zamba2's window of 512 with heads of 80, MLA's D = 192,
+        whisper's unmasked encoder and its 448-over-1,500 cross-attention),
+        bf16 and f32, each against autograd through the plain f32 forward
+        (bf16 at most twice the plain bf16 autograd's error plus one bf16
+        step, f32 within 1e-4 relative, the lse within 1e-4), timed beside
+        its plain version, its bound and the library's backward;
+     b. every registry arch reduced, the same weights on the card and on
+        the CPU: the loss and every gradient leaf against the CPU's f32 run
+        under 6b's rule (the MoE archs routed as their f32 run), then 5
+        steps of ``TrainLoop`` on the card with the loss falling;
+     c. the main path: ``launch.train`` for stablelm-1.6b at its published
+        widths and 24 layers, random weights from seed 0, 4 x 2,048 tokens,
+        10 steps checkpointed every 5: the loss falls, the exact launches a
+        step, ms a step, tokens/s, the peak; one step profiled, one under
+        sync debug mode "error"; a fresh model resumed from the step-5
+        checkpoint gives steps 5-9's losses bit for bit;
+     d. ``examples.train_lm --full`` (smollm-135m, 8 x 128): the loss falls.
 
 Phases 4, 5, 7a-b and 8a-b pass ``cost_model="off"``: under ``"auto"`` a
 graph of 2,048 edges or more is calibrated, and the card and the CPU may
@@ -3198,6 +3220,15 @@ def oracle_phase(torch, np, run, RunConfig, G, build):
 # Phase 6: the model zoo's dense decoder (qwen2.5-14b)
 # ---------------------------------------------------------------------------
 
+def keep_mask(torch, sq, sk, causal, window, device):
+    """(Sq, Sk) bool: key j kept for query i when j <= i (causal) and
+    j > i - window (window > 0)."""
+    i = torch.arange(sq, device=device)[:, None]
+    j = torch.arange(sk, device=device)[None, :]
+    keep = (i >= j) if causal else torch.ones_like(i >= j)
+    return keep & (j > i - window) if window else keep
+
+
 def causal_pairs(sq, sk):
     """(query, key) pairs the start-aligned causal mask keeps."""
     return sum(min(i + 1, sk) for i in range(sq))
@@ -3907,11 +3938,7 @@ def zoo_kernel_checks(torch):
         k = torch.randn((b, sk, h, d), generator=gen, device=dev).to(bf16)
         v = torch.randn((b, sk, h, d), generator=gen, device=dev).to(bf16)
         v[..., dv:] = 0
-        i = torch.arange(sq, device=dev)[:, None]
-        j = torch.arange(sk, device=dev)[None, :]
-        keep = (i >= j) if causal else torch.ones_like(i >= j)
-        if window:
-            keep = keep & (j > i - window)
+        keep = keep_mask(torch, sq, sk, causal, window, dev)
         pairs = int(keep.sum())
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         mask = None if (not window and causal) else keep
@@ -4510,6 +4537,559 @@ def zoo_phase(torch, build) -> tuple:
     return totals, out
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: training on the card
+# ---------------------------------------------------------------------------
+
+#: 13c: the widest registry arch whose AdamW state fits one card (1.64e9
+#: parameters: 3.3 GB of bf16 weights, 3.3 GB of gradients, 19.7 GB of f32
+#: master weights and moments), published widths and depth, random weights
+#: from seed 0, batch 4 x 2,048; a checkpoint every 5 steps, and a resume
+#: from step 5 whose losses must equal the uninterrupted run's
+TRAIN_ARCH = "stablelm-1.6b"
+TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_CKPT_EVERY = 4, 2048, 10, 5
+#: 13d: the train_lm example at published widths (smollm-135m, 8 x 128)
+TRAIN_LM_STEPS = 12
+#: 13b: the reduced archs' batch and TrainLoop steps on the card
+TRAIN_SMALL_B, TRAIN_SMALL_S, TRAIN_SMALL_STEPS = 2, 32, 5
+#: the backward kernels' timing: slow calls, few of them
+BWD_TIMING = dict(calls=3, windows=3, warmup=1)
+#: 13a's bf16 rule: the kernel's largest error against the f32 reference
+#: (autograd through the plain f32 forward) at most twice that of autograd
+#: through the plain bf16 forward, plus a floor of one bf16 rounding step
+#: at the output's largest value (FlashAttention's own test rule, whose
+#: bf16 reference runs in bf16; ours computes in f32 and rounds once, so
+#: its error is at most half a step and the floor keeps a one-step
+#: difference of rounding from failing the rule)
+BWD_BF16_FLOOR = 2 ** -8
+#: 13a's f32 rule (relative to the output's largest value) and the lse's
+BWD_F32_TOL, LSE_TOL = 1e-4, 1e-4
+#: 13a's flash shapes: (label, B, Sq, Sk, H, KV, D, causal, window)
+TRAIN_FLASH_SHAPES = (
+    ("stablelm-1.6b", 4, 2048, 2048, 32, 32, 64, True, 0),
+    ("smollm-135m", 8, 128, 128, 9, 3, 64, True, 0),
+    ("zamba2 window 512", 4, 2048, 2048, 32, 32, 80, True, 512),
+    ("MLA prefill (B = 1)", 1, 2048, 2048, 128, 128, 192, True, 0),
+    ("whisper encoder", 4, 1500, 1500, 8, 8, 64, False, 0),
+    ("whisper cross", 4, 448, 1500, 8, 8, 64, False, 0),
+)
+#: 13a's RMSNorm shapes: (label, rows, D)
+TRAIN_NORM_SHAPES = (("smollm-135m", 8 * 128, 576),
+                     ("stablelm-1.6b", TRAIN_B * TRAIN_S, 2048))
+
+
+def grads_of(torch, fn, inputs, dout):
+    """Autograd's gradients of ``fn(*inputs)`` against ``dout``, the inputs
+    taken as fresh leaves."""
+    leaves = [t.detach().clone().requires_grad_() for t in inputs]
+    return torch.autograd.grad(fn(*leaves), leaves, dout)
+
+
+def bwd_errors(torch, got, plain, ref, dtype):
+    """13a's rule for each output: f32 within ``BWD_F32_TOL`` of the
+    reference's largest value; bf16 at most twice the plain bf16 autograd's
+    largest error plus ``BWD_BF16_FLOOR`` of that value. Returns the
+    kernel's largest error over the outputs and each output's record."""
+    recs = []
+    for g, p, r in zip(got, plain, ref):
+        r = r.float()
+        top = float(r.abs().max())
+        err = float((g.float() - r).abs().max())
+        perr = float((p.float() - r).abs().max())
+        if dtype == torch.float32:
+            ok = err <= BWD_F32_TOL * top
+        else:
+            ok = err <= 2 * perr + BWD_BF16_FLOOR * top
+        recs.append({"err": err, "plain_err": perr, "max_ref": top,
+                     "ok": ok})
+    return max(r["err"] for r in recs), recs
+
+
+def library_backward(torch, fn, inputs, dout):
+    """A closure that runs only the backward of ``fn`` (a library call) on
+    fresh leaves of ``inputs``: the graph is built once and kept."""
+    leaves = [t.detach().clone().requires_grad_() for t in inputs]
+    out = fn(*leaves)
+    return lambda: torch.autograd.grad(out, leaves, dout, retain_graph=True)
+
+
+def train_kernel_checks(torch):
+    """13a: the RMSNorm and flash-attention backward kernels and the
+    forward's lse against their plain versions at the training shapes, bf16
+    and f32: the f32 reference is autograd through the plain f32 forward
+    on f32 copies of the inputs; bf16 under the rule of
+    :func:`bwd_errors`, f32 within 1e-4 relative, the lse within 1e-4. Each
+    timed beside its plain version, its bound and the library's backward
+    (``F.rms_norm``, SDPA with the same mask, through autograd; the port
+    never calls them). Returns the two rows of the kernels line (bf16 at
+    stablelm-1.6b's shapes) and every case's record."""
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention_bwd_cuda, flash_attention_bwd_ref,
+        flash_attention_cuda, flash_attention_lse_ref, flash_attention_ref)
+    from repro_torch.kernels.rmsnorm.rmsnorm import (
+        rmsnorm_bwd_cuda, rmsnorm_bwd_ref, rmsnorm_ref)
+
+    F = torch.nn.functional
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(13)
+    rows, cases, bad = {}, [], []
+    eps = 1e-5
+    for dtype in (torch.bfloat16, torch.float32):
+        es = torch.finfo(dtype).bits // 8
+        for label, r, d in TRAIN_NORM_SHAPES:
+            x = torch.randn((r, d), generator=gen, device=dev).to(dtype)
+            scale = (1 + 0.1 * torch.randn((d,), generator=gen,
+                                           device=dev)).to(dtype)
+            dy = torch.randn((r, d), generator=gen, device=dev).to(dtype)
+            got = rmsnorm_bwd_cuda(x, scale, dy, eps)
+            plain = grads_of(torch, lambda a, s: rmsnorm_ref(a, s, eps),
+                             (x, scale), dy)
+            ref = grads_of(torch, lambda a, s: rmsnorm_ref(a, s, eps),
+                           (x.float(), scale.float()), dy.float())
+            torch.cuda.synchronize()
+            err, recs = bwd_errors(torch, got, plain, ref, dtype)
+            if not all(c["ok"] for c in recs):
+                bad.append(f"rmsnorm_bwd {dtype} {label}: {recs}")
+            timed = time_call(torch, lambda: rmsnorm_bwd_cuda(x, scale, dy,
+                                                              eps),
+                              device=True)
+            plain_ms = time_ms(torch, lambda: rmsnorm_bwd_ref(x, scale, dy,
+                                                              eps))
+            lib = time_call(torch, library_backward(
+                torch, lambda a, s: F.rms_norm(a, (d,), s, eps), (x, scale),
+                dy), device=True)
+            # x, dy and scale read once, dx and dscale written once (the
+            # kernel's partial column sums are its own scratch)
+            nbytes = 3 * r * d * es + 2 * d * es
+            row = kernel_row(
+                "rmsnorm_bwd", "src/repro_torch/kernels/csrc/rmsnorm.cu",
+                "none: the port's own backward of "
+                "src/repro/kernels/rmsnorm/rmsnorm.py:23", err, timed,
+                plain_ms, nbytes, lib["ms"], ops=10 * r * d,
+                op_rate=F32_FLOPS)
+            cases.append(dict(row, shape=[r, d], dtype=str(dtype), at=label,
+                              outputs=recs, library=lib))
+            if dtype == torch.bfloat16 and label == TRAIN_ARCH:
+                rows["rmsnorm_bwd"] = row
+            del x, scale, dy, got, plain, ref
+    for dtype in (torch.bfloat16, torch.float32):
+        es = torch.finfo(dtype).bits // 8
+        rate = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
+        for label, b, sq, sk, h, kv, d, causal, window in TRAIN_FLASH_SHAPES:
+            def draw(*shape):
+                return torch.randn(shape, generator=gen, device=dev).to(dtype)
+            q, k, v = draw(b, sq, h, d), draw(b, sk, kv, d), draw(b, sk, kv, d)
+            dout = draw(b, sq, h, d)
+            out, lse = flash_attention_cuda(q, k, v, causal, window,
+                                            return_lse=True)
+            want_lse = flash_attention_lse_ref(q, k, causal, window)
+            lse_err = float((lse - want_lse).abs().max())
+            if not lse_err <= LSE_TOL:
+                bad.append(f"lse {dtype} {label}: {lse_err}")
+            del want_lse
+            got = flash_attention_bwd_cuda(q, k, v, out, dout, lse, causal,
+                                           window)
+            fn = lambda a, b_, c: flash_attention_ref(a, b_, c, causal,
+                                                      window)
+            plain = grads_of(torch, fn, (q, k, v), dout)
+            torch.cuda.empty_cache()
+            ref = grads_of(torch, fn, (q.float(), k.float(), v.float()),
+                           dout.float())
+            torch.cuda.synchronize()
+            err, recs = bwd_errors(torch, got, plain, ref, dtype)
+            if not all(c["ok"] for c in recs):
+                bad.append(f"flash_attention_bwd {dtype} {label}: {recs}")
+            del plain, ref, got
+            torch.cuda.empty_cache()
+            timed = time_call(torch, lambda: flash_attention_bwd_cuda(
+                q, k, v, out, dout, lse, causal, window), device=True,
+                **BWD_TIMING)
+            plain_ms = time_ms(torch, lambda: flash_attention_bwd_ref(
+                q, k, v, out, dout, lse, causal, window), **PLAIN)
+            torch.cuda.empty_cache()
+            keep = keep_mask(torch, sq, sk, causal, window, dev)
+            pairs = int(keep.sum())
+            mask = keep if window else None
+            sdpa = lambda a, b_, c: F.scaled_dot_product_attention(
+                a.transpose(1, 2), b_.transpose(1, 2), c.transpose(1, 2),
+                attn_mask=mask, is_causal=causal and mask is None,
+                enable_gqa=True)
+            lib = time_ms(torch, library_backward(
+                torch, sdpa, (q, k, v), dout.transpose(1, 2)), **BWD_TIMING)
+            flops = 10 * d * pairs * b * h
+            # inputs q, k, v, out, dout, lse read once, dq, dk, dv written
+            # once (the kernels' own delta scratch is not counted)
+            nbytes = (4 * q.numel() + 2 * k.numel() + 2 * v.numel()) * es \
+                + lse.numel() * 4
+            row = kernel_row(
+                "flash_attention_bwd",
+                "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+                "none: the port's own backward of src/repro/kernels/"
+                "flash_attention/flash_attention.py:68", err, timed,
+                plain_ms, nbytes, lib, ops=flops, op_rate=rate)
+            log(f"    lse max_abs_err {lse_err:.2e}; kernel "
+                f"{14 * d * pairs * b * h / timed['ms'] / 1e9:.1f} TFLOP/s "
+                f"done (14 D a pair), {row['bound_ms'] / timed['ms']:.1%} of "
+                f"its bound, {timed['ms'] / lib:.2f}x SDPA's backward")
+            cases.append(dict(row, shape=[b, sq, sk, h, kv, d],
+                              causal=causal, window=window, dtype=str(dtype),
+                              at=label, outputs=recs, lse_err=lse_err))
+            if dtype == torch.bfloat16 and label == TRAIN_ARCH:
+                rows["flash_attention_bwd"] = row
+            del q, k, v, dout, out, lse
+            torch.cuda.empty_cache()
+    need(not bad, "13a: " + "; ".join(bad))
+    return [rows["rmsnorm_bwd"], rows["flash_attention_bwd"]], cases
+
+
+def grad_errors(torch, got, base, ref):
+    """Per gradient leaf the mean absolute error relative to the f32
+    reference's mean magnitude, of the card's (``got``) and the CPU's bf16
+    (``base``) gradients; 6b's rule over the leaves: the card's mean at
+    most 1.25x the CPU's, its largest at most 2x."""
+    card, cpu = [], []
+    for g, c, r in zip(got, base, ref):
+        r = r.float()
+        scale = float(r.abs().mean()) or 1.0
+        card.append(float((g.float().cpu() - r).abs().mean()) / scale)
+        cpu.append(float((c.float() - r).abs().mean()) / scale)
+    e = {"card_mean": statistics.fmean(card), "card_max": max(card),
+         "cpu_mean": statistics.fmean(cpu), "cpu_max": max(cpu),
+         "leaves": len(card)}
+    e["ok"] = (e["card_mean"] <= 1.25 * e["cpu_mean"]
+               and e["card_max"] <= 2 * e["cpu_max"])
+    return e
+
+
+def train_card_vs_cpu(torch):
+    """13b: every registry arch, reduced, the same bf16 weights on the card
+    and on the CPU (drawn on the CPU from a seed, then moved): the loss and
+    every gradient leaf against the CPU's f32 run of the same weights,
+    under 6b's rule (the loss as one logit, the leaves by
+    :func:`grad_errors`); the MoE archs' bf16 runs take the f32 run's
+    experts (:class:`RouteLog`), as 12b's do. Then ``TrainLoop`` on the
+    card for ``TRAIN_SMALL_STEPS`` steps of the synthetic tokens: the loss
+    falls."""
+    import copy
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.models import build_model, make_batch
+    from repro_torch.training.data import DataConfig, global_batch
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.training.train_step import TrainLoop
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out, bad = {}, []
+    shape = ShapeConfig("t", seq_len=TRAIN_SMALL_S,
+                        global_batch=TRAIN_SMALL_B, kind="train")
+    for name in sorted(ARCHS):
+        cfg = ARCHS[name].reduced()
+        cpu = build_model(cfg, device="cpu", seed=5)
+        cpu32 = copy.deepcopy(cpu).float()
+        card = copy.deepcopy(cpu).to("cuda")
+        batch = make_batch(cfg, shape, torch.Generator().manual_seed(6))
+        runs, force = [], None
+        for m in (cpu32, card, cpu):
+            with RouteLog(force=force) as routes:
+                loss = m.loss(batch)
+                grads = torch.autograd.grad(loss, list(m.parameters()))
+            force = routes if force is None else force
+            runs.append((loss.detach().float().cpu(),
+                         [g.detach().float().cpu() for g in grads]))
+        (l32, g32), (lcard, gcard), (lcpu, gcpu) = runs
+        rec = {"loss": logit_errors(lcard, lcpu, l32),
+               "grads": grad_errors(torch, gcard, gcpu, g32)}
+        e = rec["loss"]
+        # one value: the card's loss as close as the CPU's, or within a
+        # bf16 step of the f32 loss
+        loss_ok = e["card_max"] <= max(2 * e["cpu_max"],
+                                       2 ** -8 * float(l32.abs()))
+        if not (loss_ok and rec["grads"]["ok"]):
+            bad.append(f"{name}: {rec}")
+        del cpu, cpu32, runs, g32, gcard, gcpu
+        dc = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SMALL_S,
+                        global_batch=TRAIN_SMALL_B, seed=7)
+        steps = []
+        for s in range(TRAIN_SMALL_STEPS):
+            b = global_batch(dc, s)
+            b.update({k: v for k, v in batch.items()
+                      if k in ("patch_embeds", "frames")})
+            steps.append(b)
+        _, hist = TrainLoop(card, AdamWConfig(
+            lr=3e-3, warmup_steps=1, total_steps=TRAIN_SMALL_STEPS)).run(steps)
+        rec["losses"] = [h["loss"] for h in hist]
+        if not (rec["losses"][-1] < rec["losses"][0]
+                and not any(h["skipped"] for h in hist)):
+            bad.append(f"{name}: the loss did not fall on the card: "
+                       f"{rec['losses']}")
+        out[name] = rec
+        g = rec["grads"]
+        log(f"  {name} (reduced): loss card {float(lcard):.5f} CPU bf16 "
+            f"{float(lcpu):.5f} f32 {float(l32):.5f}; gradient leaves "
+            f"|card - f32| / |f32| mean {g['card_mean']:.2e} max "
+            f"{g['card_max']:.2e} (CPU bf16 {g['cpu_mean']:.2e} / "
+            f"{g['cpu_max']:.2e}); TrainLoop losses "
+            + " ".join(f"{x:.3f}" for x in rec["losses"]))
+        del card
+        torch.cuda.empty_cache()
+    need(not bad, "13b: " + "; ".join(bad))
+    return out
+
+
+def train_launches(cfg) -> dict:
+    """Exact kernel launches of one train step of a dense decoder: every
+    norm once forward and once backward (2 a layer and the final one),
+    every attention once forward and once backward (one counted call of the
+    backward launches its three kernels: delta, dK/dV, dQ)."""
+    norms, flash = 2 * cfg.n_layers + 1, cfg.n_layers
+    return {"rmsnorm": norms, "rmsnorm_bwd": norms,
+            "flash_attention": flash, "flash_attention_bwd": flash}
+
+
+def train_profile(torch, step, state, batch, wall_s, top=10):
+    """Device time by kernel of one train step (``torch.profiler``) and the
+    device's busy share of the unprofiled step wall ``wall_s``; ``None``
+    where the profiler records no device time on this machine."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        state, _ = step(state, batch)
+        torch.cuda.synchronize()
+    recs = sorted(
+        ((e.self_device_time_total, e.key, e.count)
+         for e in prof.key_averages()
+         if getattr(e, "device_type", None) == DeviceType.CUDA
+         and e.self_device_time_total > 0
+         and e.key != "Command Buffer Full"), reverse=True)
+    if not recs:
+        log("  profile train step: no device time recorded")
+        return state, None
+    busy = sum(r[0] for r in recs) / 1e3
+    wall = wall_s * 1e3
+    out = {"device_busy_ms": busy, "wall_ms": wall,
+           "idle_share": max(0.0, 1 - busy / wall),
+           "launches": sum(r[2] for r in recs),
+           "top": [{"name": k[:90], "device_ms": us / 1e3, "count": c}
+                   for us, k, c in recs[:top]]}
+    log(f"  profile train step: device busy {busy:.1f} ms of {wall:.1f} ms "
+        f"unprofiled wall (idle {out['idle_share']:.1%}), "
+        f"{out['launches']} device records")
+    for us, k, c in recs[:top]:
+        log(f"    {us / 1e3:9.3f} ms  x{c:<5} {k[:80]}")
+    return state, out
+
+
+class Timed:
+    """While active, the named functions of ``module`` are timed: the
+    record maps each name to the wall seconds of its calls."""
+
+    def __init__(self, module, *names):
+        self.module, self.names = module, names
+
+    def __enter__(self):
+        self.orig = {n: getattr(self.module, n) for n in self.names}
+        self.record = {n: [] for n in self.names}
+
+        def timed(name, fn):
+            def call(*a, **k):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*a, **k)
+                finally:
+                    self.record[name].append(time.perf_counter() - t0)
+            return call
+        for n, fn in self.orig.items():
+            setattr(self.module, n, timed(n, fn))
+        return self.record
+
+    def __exit__(self, *exc):
+        for n, fn in self.orig.items():
+            setattr(self.module, n, fn)
+
+
+def train_main_path(torch, build, totals) -> dict:
+    """13c: ``repro_torch.launch.train`` (through ``TrainLoop``) for
+    ``TRAIN_ARCH`` at its published widths and depth, random weights from
+    seed 0, ``TRAIN_B`` x ``TRAIN_S`` tokens, ``TRAIN_STEPS`` steps with a
+    checkpoint every ``TRAIN_CKPT_EVERY``: the loss falls, the exact
+    launches a step (:func:`train_launches`), ms a step, tokens/s, the
+    peak; one more step profiled and one under sync debug mode "error" (the
+    loss read after it); then a fresh model resumed from the step-5
+    checkpoint trains steps 5..9, whose losses must equal the uninterrupted
+    run's bit for bit. Launches of the two counted runs are added to
+    ``totals``."""
+    from repro_torch.launch import train
+    from repro_torch.training import checkpoint as ckpt
+    from repro_torch.training.data import DataConfig, global_batch
+    from repro_torch.training.train_step import make_train_step, to_device
+
+    out = {}
+    tmp = tempfile.mkdtemp(prefix="repro_train_ckpt_")
+    try:
+        argv = ["--arch", TRAIN_ARCH, "--full", "--steps", str(TRAIN_STEPS),
+                "--batch", str(TRAIN_B), "--seq", str(TRAIN_S),
+                "--ckpt-dir", tmp, "--ckpt-every", str(TRAIN_CKPT_EVERY)]
+        args = train.parse_args(argv)
+        t0 = time.perf_counter()
+        model, loop, batches = train.setup(args)
+        torch.cuda.synchronize()
+        out["init_s"] = time.perf_counter() - t0
+        out["params"] = model.n_params()
+        log(f"  {TRAIN_ARCH}: {out['params']:,} parameters drawn in "
+            f"{out['init_s']:.2f} s; disk free for checkpoints "
+            f"{shutil.disk_usage(tmp).free / 1e9:.1f} GB")
+        want = train_launches(model.cfg)
+        torch.cuda.reset_peak_memory_stats()
+        build.reset_launches()
+        t0 = time.perf_counter()
+        with Timed(ckpt, "save", "restore") as io_s:
+            state, hist = loop.run(batches)
+        torch.cuda.synchronize()
+        out["run_s"] = time.perf_counter() - t0
+        out["save_s"] = io_s["save"]
+        out["peak_bytes"] = torch.cuda.max_memory_allocated()
+        got = {k: build.LAUNCHES[k] for k in want}
+        for k, n in got.items():
+            totals[k] += n
+        need(all(got[k] == TRAIN_STEPS * n for k, n in want.items()),
+             f"13c launches {got}, expected {TRAIN_STEPS} x {want}")
+        need(sum(build.LAUNCHES.values()) == sum(got.values()),
+             f"13c launched other kernels: {dict(build.LAUNCHES)}")
+        losses = [h["loss"] for h in hist]
+        step_s = statistics.median(h["time_s"] for h in hist[1:])
+        out.update(losses=losses, step_ms=[h["time_s"] * 1e3 for h in hist],
+                   median_step_ms=step_s * 1e3,
+                   tokens_per_s=TRAIN_B * TRAIN_S / step_s,
+                   launches_per_step=want,
+                   skipped=[h["skipped"] for h in hist])
+        need(len(hist) == TRAIN_STEPS and not any(out["skipped"]),
+             f"13c: {len(hist)} steps, skipped {out['skipped']}")
+        # the launcher's defaults (lr 1e-3, one warm-up step at 10 steps):
+        # the loss rises at steps 2-4 before it falls, at lr 1e-3, 3e-4 and
+        # 1e-4 alike, as the reference's does at smollm-135m's widths
+        # (tests/train_full_width_parity.py; PERF.md, PR 26), so the end
+        # of the run is held below its start
+        need(losses[-1] < losses[0] and statistics.fmean(losses[-3:])
+             < statistics.fmean(losses[:3]),
+             f"13c: the loss did not fall: {losses}")
+        log(f"  {TRAIN_STEPS} steps: losses "
+            + " ".join(f"{x:.4f}" for x in losses))
+        log(f"  step {step_s * 1e3:.1f} ms (median of steps 1-"
+            f"{TRAIN_STEPS - 1}; step 0 {hist[0]['time_s'] * 1e3:.1f} ms), "
+            f"{out['tokens_per_s']:,.0f} tokens/s, peak "
+            f"{out['peak_bytes'] / 1e9:.2f} GB; launches a step {want} "
+            f"(the backward's {want['flash_attention_bwd']} calls launch "
+            "3 kernels each, its rmsnorm_bwd calls 2)")
+
+        step = make_train_step(model, loop.opt_cfg)
+        dc = DataConfig(vocab=model.cfg.vocab, seq_len=TRAIN_S,
+                        global_batch=TRAIN_B)
+        batch = to_device(global_batch(dc, TRAIN_STEPS), model.device)
+        state, out["profile"] = train_profile(torch, step, state, batch,
+                                              step_s)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            state, metrics = step(state, batch)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        out["sync_debug_loss"] = float(metrics["loss"])
+        need(math.isfinite(out["sync_debug_loss"]), "13c: sync-debug step")
+        log(f"  one train step ran under sync debug mode 'error' (loss "
+            f"{out['sync_debug_loss']:.4f}): no host sync")
+        del model, loop, state, step, batch, metrics
+        torch.cuda.empty_cache()
+
+        # resume: the step-5 checkpoint is the latest once step 10's goes;
+        # the resumed run saves nothing (its cadence past its last step)
+        shutil.rmtree(os.path.join(tmp, f"step_{TRAIN_STEPS:08d}"))
+        need(ckpt.latest_step(tmp) == TRAIN_CKPT_EVERY,
+             f"13c: checkpoints {os.listdir(tmp)}")
+        build.reset_launches()
+        t0 = time.perf_counter()
+        args.ckpt_every = TRAIN_STEPS + 1
+        model, loop, batches = train.setup(args)
+        with Timed(ckpt, "save", "restore") as io_s:
+            _, hist2 = loop.run(batches)
+        torch.cuda.synchronize()
+        out["resume_s"] = time.perf_counter() - t0
+        out["restore_s"] = io_s["restore"]
+        for k in want:
+            totals[k] += build.LAUNCHES[k]
+        resumed = [h["loss"] for h in hist2]
+        out["resumed_losses"] = resumed
+        need([h["step"] for h in hist2]
+             == list(range(TRAIN_CKPT_EVERY, TRAIN_STEPS))
+             and resumed == losses[TRAIN_CKPT_EVERY:],
+             f"13c: resumed losses {resumed} differ from the uninterrupted "
+             f"run's {losses[TRAIN_CKPT_EVERY:]}")
+        log(f"  checkpoints of {TRAIN_ARCH}: saves "
+            + ", ".join(f"{x:.1f}" for x in out["save_s"])
+            + f" s, restore {out['restore_s'][0]:.1f} s")
+        log(f"  resumed from step {TRAIN_CKPT_EVERY} in a fresh model "
+            f"({out['resume_s']:.1f} s with the restore): losses of steps "
+            f"{TRAIN_CKPT_EVERY}-{TRAIN_STEPS - 1} equal the uninterrupted "
+            "run's, bit for bit")
+        del model, loop
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return out
+
+
+def train_example(torch, build, totals) -> dict:
+    """13d: ``repro_torch.examples.train_lm --full`` (smollm-135m at its
+    published widths and 30 layers, 8 x 128 tokens) for ``TRAIN_LM_STEPS``
+    steps: the loss falls; its launches added to ``totals``."""
+    from repro_torch.examples import train_lm
+
+    build.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        hist = train_lm.main(["--steps", str(TRAIN_LM_STEPS), "--full"])
+    wall = time.perf_counter() - t0
+    for k in ("rmsnorm", "rmsnorm_bwd", "flash_attention",
+              "flash_attention_bwd"):
+        totals[k] += build.LAUNCHES[k]
+    losses = [h["loss"] for h in hist]
+    need(len(hist) == TRAIN_LM_STEPS and losses[-1] < losses[0],
+         f"13d: train_lm losses {losses}")
+    step_ms = statistics.median(h["time_s"] for h in hist[1:]) * 1e3
+    log(f"  train_lm --full: {TRAIN_LM_STEPS} steps in {wall:.1f} s, step "
+        f"{step_ms:.1f} ms, losses {losses[0]:.4f} -> {losses[-1]:.4f}")
+    return {"losses": losses, "wall_s": wall, "median_step_ms": step_ms}
+
+
+def train_phase(torch, build) -> tuple:
+    """Phase 13: 13a the backward kernels and the lse, 13b every reduced
+    arch card against CPU and a short TrainLoop, 13c the main path at
+    published widths with its checkpoint and resume, 13d the train_lm
+    example. Returns the launches of 13c's and 13d's counted runs, the
+    kernels line's two rows and the phase's record."""
+    t_phase = time.perf_counter()
+    out = {}
+    log("[13a] the backward kernels and the lse vs their plain versions")
+    rows, out["kernels"] = train_kernel_checks(torch)
+    build.reset_launches()
+    log("[13b] every reduced arch: card port vs CPU port, loss and "
+        "gradients; TrainLoop on the card")
+    out["card_vs_cpu"] = train_card_vs_cpu(torch)
+    totals = {name: 0 for name in build.LAUNCHES}
+    log(f"[13c] main path: repro_torch.launch.train, {TRAIN_ARCH} at its "
+        f"published widths, {TRAIN_B} x {TRAIN_S}, {TRAIN_STEPS} steps")
+    out["main_path"] = train_main_path(torch, build, totals)
+    log("[13d] repro_torch.examples.train_lm --full")
+    out["train_lm"] = train_example(torch, build, totals)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 13: {out['seconds']:.1f} s")
+    return totals, rows, out
+
+
 def kernel_times(torch, np) -> dict:
     """The redesigned kernels of the ``repro_torch`` on ``sys.path`` at the
     main path's shapes on ``mico_like(0.1)``: the radix sort and
@@ -4822,11 +5402,19 @@ def main(argv=None) -> int:
     zoo_totals, extra["zoo"] = zoo_phase(torch, build)
     for name, v in zoo_totals.items():
         totals[name] += v
+
+    # ---- 13. training ---------------------------------------------------------
+    log("[13] training on the card: the loss, AdamW, the train loop and its "
+        "checkpoints, both kernels in both directions")
+    train_totals, rows, extra["training"] = train_phase(torch, build)
+    kernels += rows
+    for name, v in train_totals.items():
+        totals[name] += v
     for row in kernels:
         row["launches"] = totals[row["name"]]
         need(row["launches"] > 0,
              f"{row['name']} never launched on the main path")
-    need(len(kernels) == 11, f"{len(kernels)} kernel rows, expected 11")
+    need(len(kernels) == 13, f"{len(kernels)} kernel rows, expected 13")
 
     if args.json is not None:
         args.json.parent.mkdir(parents=True, exist_ok=True)

@@ -46,6 +46,8 @@ LAUNCHES: Dict[str, int] = {
     "canonical_check_tiles": 0,
     "rmsnorm": 0,
     "flash_attention": 0,
+    "rmsnorm_bwd": 0,
+    "flash_attention_bwd": 0,
 }
 
 _P = ctypes.c_void_p
@@ -70,8 +72,12 @@ _SIGNATURES = {
     "repro_canonical_check_tiles": [_P, _P, _P, _P, _P, _L, _I, _L, _L, _P,
                                     _P],
     "repro_rmsnorm": [_P, _P, _P, _L, _I, _F, _I, _I, _P],
-    "repro_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I,
-                              _I, _I, _P],
+    "repro_rmsnorm_bwd_ctas": [],
+    "repro_rmsnorm_bwd": [_P, _P, _P, _P, _P, _P, _L, _I, _F, _I, _I, _P],
+    "repro_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P,
+                              _I, _I, _I, _P],
+    "repro_flash_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                  _I, _I, _I, _I, _I, _P, _I, _I, _I, _P],
 }
 
 class KernelCompileError(RuntimeError):

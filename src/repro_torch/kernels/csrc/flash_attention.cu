@@ -9,6 +9,11 @@
 //   accumulator are f32, and so is the scale D^-1/2 (bf16: on the scores;
 //   f32: on q as it is loaded).
 //
+// Given an lse pointer, each row's log-sum-exp of its scaled scores (natural
+// log, f32, (B, H, Sq)) is written at the epilogue, from the running max and
+// the f32 row sum: the input of the backward (flash_attention_bwd.cu).
+// Serving passes none and writes nothing more.
+//
 // Replaces: src/repro/kernels/flash_attention/flash_attention.py:
 // flash_attention_bhsd (_attn_kernel), which takes (B*H, S, D) with the KV
 // heads already repeated (ops.py's jnp.repeat and transposes), asserts
@@ -87,7 +92,8 @@ constexpr size_t smem_bytes() {
 template <typename T, int DMAX>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ out, int sq,
+                       const T* __restrict__ v, T* __restrict__ out,
+                       float* __restrict__ lse, int sq,
                        int sk, int n_heads, int n_kv, int d, int64_t qsb,
                        int64_t qss, int64_t qsh, int64_t ksb, int64_t kss,
                        int64_t ksh, int64_t vsb, int64_t vss, int64_t vsh,
@@ -225,6 +231,10 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   if (spart == 0) sL[srow] = l_run;
+  // the row's log-sum-exp of its scaled scores (q was scaled on its load)
+  if (lse != nullptr && spart == 0 && q0 + srow < sq)
+    lse[((int64_t)b * n_heads + head) * sq + q0 + srow] =
+        l_run > 0.f ? m_run + logf(l_run) : -INFINITY;
   __syncthreads();
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -537,7 +547,8 @@ __global__ void __launch_bounds__(kTcThreads, 1)
 flash_attention_tc(const __grid_constant__ CUtensorMap tmq,
                    const __grid_constant__ CUtensorMap tmk,
                    const __grid_constant__ CUtensorMap tmv,
-                   __nv_bfloat16* __restrict__ out, int sq, int sk,
+                   __nv_bfloat16* __restrict__ out,
+                   float* __restrict__ lse, int sq, int sk,
                    int n_heads, int n_kv, int d, int causal, int window,
                    float scale_log2) {
   using T = TcShape<DP>;
@@ -713,6 +724,13 @@ flash_attention_tc(const __grid_constant__ CUtensorMap tmq,
     l += __shfl_xor_sync(0xffffffffu, l, 1);
     l += __shfl_xor_sync(0xffffffffu, l, 2);
     inv[h] = l > 0.f ? 1.f / l : 0.f;
+    // the row's log-sum-exp of its scaled scores, natural log: m scale +
+    // ln(l), from the running max (raw score units) and the f32 row sum
+    const int row = r0 + 8 * h;
+    if (lse != nullptr && lane % 4 == 0 && row < sq)
+      lse[((int64_t)b * n_heads + head) * sq + row] =
+          l > 0.f ? (m_run[h] * scale_log2 + log2f(l)) * 0.6931471805599453f
+                  : -INFINITY;
   }
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
@@ -733,6 +751,12 @@ flash_attention_tc(const __grid_constant__ CUtensorMap tmq,
 // host side
 // ===========================================================================
 
+// lse of rows with no key (Sk = 0): -inf.
+__global__ void fill_neg_inf(float* __restrict__ p, long long n) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) p[i] = -INFINITY;
+}
+
 // Sets a kernel's dynamic shared memory once for each device it runs on.
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, int bytes, bool* done) {
@@ -747,7 +771,8 @@ cudaError_t allow_smem(Kernel kernel, int bytes, bool* done) {
 }
 
 template <typename T, int DMAX>
-int launch(const void* q, const void* k, const void* v, void* out, int b,
+int launch(const void* q, const void* k, const void* v, void* out,
+           float* lse, int b,
            int sq, int sk, int h, int kv, int d, const long long* st,
            int causal, int window, cudaStream_t stream) {
   auto kernel = flash_attention_kernel<T, DMAX>;
@@ -757,20 +782,21 @@ int launch(const void* q, const void* k, const void* v, void* out, int b,
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((sq + kBQ - 1) / kBQ, h, b);
   kernel<<<grid, kThreads, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)out, sq, sk, h, kv, d,
+      (const T*)q, (const T*)k, (const T*)v, (T*)out, lse, sq, sk, h, kv, d,
       st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], causal,
       window, 1.0f / sqrtf((float)d));
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int dispatch_d(const void* q, const void* k, const void* v, void* out, int b,
+int dispatch_d(const void* q, const void* k, const void* v, void* out,
+               float* lse, int b,
                int sq, int sk, int h, int kv, int d, const long long* st,
                int causal, int w, cudaStream_t s) {
-  if (d <= 32) return launch<T, 32>(q, k, v, out, b, sq, sk, h, kv, d, st, causal, w, s);
-  if (d <= 64) return launch<T, 64>(q, k, v, out, b, sq, sk, h, kv, d, st, causal, w, s);
-  if (d <= 128) return launch<T, 128>(q, k, v, out, b, sq, sk, h, kv, d, st, causal, w, s);
-  return launch<T, 256>(q, k, v, out, b, sq, sk, h, kv, d, st, causal, w, s);
+  if (d <= 32) return launch<T, 32>(q, k, v, out, lse, b, sq, sk, h, kv, d, st, causal, w, s);
+  if (d <= 64) return launch<T, 64>(q, k, v, out, lse, b, sq, sk, h, kv, d, st, causal, w, s);
+  if (d <= 128) return launch<T, 128>(q, k, v, out, lse, b, sq, sk, h, kv, d, st, causal, w, s);
+  return launch<T, 256>(q, k, v, out, lse, b, sq, sk, h, kv, d, st, causal, w, s);
 }
 
 // cuTensorMapEncodeTiled, looked up through the CUDA runtime (no -lcuda).
@@ -824,7 +850,8 @@ int tensor_map(CUtensorMap* map, const void* base, int d, int s, int heads,
 }
 
 template <int DP>
-int launch_tc(const void* q, const void* k, const void* v, void* out, int b,
+int launch_tc(const void* q, const void* k, const void* v, void* out,
+              float* lse, int b,
               int sq, int sk, int h, int kv, int d, const long long* st,
               int causal, int window, cudaStream_t stream) {
   using T = TcShape<DP>;
@@ -838,7 +865,7 @@ int launch_tc(const void* q, const void* k, const void* v, void* out, int b,
   if (bad) return bad;
   const dim3 grid((sq + kTcBQ - 1) / kTcBQ, h, b);
   flash_attention_tc<DP><<<grid, kTcThreads, T::SMEM, stream>>>(
-      mq, mk, mv, (__nv_bfloat16*)out, sq, sk, h, kv, d, causal, window,
+      mq, mk, mv, (__nv_bfloat16*)out, lse, sq, sk, h, kv, d, causal, window,
       1.4426950408889634f / sqrtf((float)d));
   return (int)cudaGetLastError();
 }
@@ -852,28 +879,38 @@ int launch_tc(const void* q, const void* k, const void* v, void* out, int b,
 // multiple of 8 elements, which the wrapper ensures); d a multiple of 8 up
 // to 256 and h a multiple of kv (the wrapper checks). window > 0 keeps key j
 // for query i only when j > i - window; 0 keeps every key. Sk = 0 gives zeros.
+// lse: null, or b x h x sq f32 that takes each row's log-sum-exp of its
+// scaled scores (natural log; -inf for a row with no key), which the
+// backward (flash_attention_bwd.cu) reads.
 // Returns cudaGetLastError() after the launch, or kTensorMapError + the
 // encoder's CUresult when a bf16 tensor map cannot be built.
 extern "C" int repro_flash_attention(const void* q, const void* k,
-                                     const void* v, void* out, int b, int sq,
+                                     const void* v, void* out, void* lse,
+                                     int b, int sq,
                                      int sk, int h, int kv, int d,
                                      const void* strides, int causal,
                                      int window, int dtype, void* stream) {
   if (b <= 0 || sq <= 0 || h <= 0 || d <= 0) return (int)cudaGetLastError();
   const long long* st = (const long long*)strides;
   const cudaStream_t s = (cudaStream_t)stream;
+  float* lse_f = (float*)lse;
   if (dtype == 1) {
-    if (sk <= 0)
+    if (sk <= 0) {
+      if (lse_f != nullptr) {
+        const long long n = (long long)b * h * sq;
+        fill_neg_inf<<<(unsigned)((n + 255) / 256), 256, 0, s>>>(lse_f, n);
+      }
       return (int)cudaMemsetAsync(out, 0, (size_t)b * sq * h * d * 2, s);
+    }
     if (d <= 64)
-      return launch_tc<64>(q, k, v, out, b, sq, sk, h, kv, d, st, causal,
+      return launch_tc<64>(q, k, v, out, lse_f, b, sq, sk, h, kv, d, st, causal,
                            window, s);
     if (d <= 128)
-      return launch_tc<128>(q, k, v, out, b, sq, sk, h, kv, d, st, causal,
+      return launch_tc<128>(q, k, v, out, lse_f, b, sq, sk, h, kv, d, st, causal,
                             window, s);
-    return launch_tc<256>(q, k, v, out, b, sq, sk, h, kv, d, st, causal,
+    return launch_tc<256>(q, k, v, out, lse_f, b, sq, sk, h, kv, d, st, causal,
                           window, s);
   }
-  return dispatch_d<float>(q, k, v, out, b, sq, sk, h, kv, d, st, causal,
+  return dispatch_d<float>(q, k, v, out, lse_f, b, sq, sk, h, kv, d, st, causal,
                            window, s);
 }

@@ -20,6 +20,22 @@ and the GQA wrapper of ``ops.py``).
     window's ``k_pos > q_pos - window``, an f32 softmax and an f32 weighted
     sum, rounded once to q's type (the reference's ``ref.py:attention_ref``
     with the GQA mapping).
+
+The forward can also return each row's log-sum-exp of its scaled scores
+(``return_lse=True``: (B, H, Sq) f32, natural log; -inf for a row with no
+key), which the backward reads. The gradient is the port's own (the JAX
+package differentiates jnp attention and has no backward kernel):
+
+  * :func:`flash_attention_bwd_cuda` — the hand-written backward
+    (``csrc/flash_attention_bwd.cu``): q, k, v, out, dout, lse -> dq
+    (B, Sq, H, D), dk and dv (B, Sk, KV, D) summed over each KV head's
+    query heads, the same masks, D and types as the forward, P recomputed
+    in f32, no atomics. Its plain version for a CPU tensor, the kernels for
+    a CUDA tensor.
+  * :func:`flash_attention_bwd_ref` — its plain version, from the formulas.
+  * :class:`FlashAttentionFn` — the ``torch.autograd.Function`` whose two
+    directions are the two kernels (``ops.flash_attention`` goes through it
+    on a CUDA tensor when a gradient is wanted).
 """
 from __future__ import annotations
 
@@ -34,24 +50,74 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
 
 
-def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        causal: bool = True, window: int = 0):
-    """Plain version: q (B, Sq, H, D), k/v (B, Sk, KV, D) -> (B, Sq, H, D)."""
-    b, sq, h, d = q.shape
-    sk, kv = k.shape[1], k.shape[2]
-    qg = q.float().reshape(b, sq, kv, h // kv, d)
-    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) * d ** -0.5
-    qpos = torch.arange(sq, device=q.device)[:, None]
-    kpos = torch.arange(sk, device=q.device)[None, :]
+def _mask(sq, sk, causal, window, device):
+    """(Sq, Sk) bool of the keys each query keeps, or None for all."""
+    qpos = torch.arange(sq, device=device)[:, None]
+    kpos = torch.arange(sk, device=device)[None, :]
     mask = qpos >= kpos if causal else None
     if window:
         near = kpos > qpos - window
         mask = near if mask is None else mask & near
+    return mask
+
+
+def _scores(q, k, causal, window):
+    """f32 scaled scores (B, KV, G, Sq, Sk), masked keys at -inf."""
+    b, sq, h, d = q.shape
+    kv = k.shape[2]
+    qg = q.float().reshape(b, sq, kv, h // kv, d)
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) * d ** -0.5
+    mask = _mask(sq, k.shape[1], causal, window, q.device)
     if mask is not None:
         scores = scores.masked_fill(~mask, float("-inf"))
-    w = torch.softmax(scores, dim=-1)
+    return scores
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True, window: int = 0):
+    """Plain version: q (B, Sq, H, D), k/v (B, Sk, KV, D) -> (B, Sq, H, D)."""
+    b, sq, h, d = q.shape
+    w = torch.softmax(_scores(q, k, causal, window), dim=-1)
     o = torch.einsum("bhgqk,bkhd->bqhgd", w, v.float())
     return o.reshape(b, sq, h, d).to(q.dtype)
+
+
+def flash_attention_lse_ref(q: torch.Tensor, k: torch.Tensor,
+                            causal: bool = True, window: int = 0):
+    """Plain version of the forward's lse: (B, H, Sq) f32 log-sum-exp of
+    each row's scaled scores over the keys it keeps."""
+    b, sq, h, _ = q.shape
+    return torch.logsumexp(_scores(q, k, causal, window), dim=-1).reshape(
+        b, h, sq)
+
+
+def flash_attention_bwd_ref(q, k, v, out, dout, lse, causal: bool = True,
+                            window: int = 0):
+    """Plain version of the backward, from the formulas, in f32: P =
+    exp(S scale - lse) recomputed, delta = rowsum(dO o O), dS = P (dO V^T -
+    delta); dV = P^T dO, dK = dS^T Q scale, dQ = dS K scale, dK and dV
+    summed over each KV head's query heads. Returns (dq, dk, dv) in q's
+    type."""
+    b, sq, h, d = q.shape
+    sk, kv = k.shape[1], k.shape[2]
+    g = h // kv
+    scale = d ** -0.5
+    qf = q.float().reshape(b, sq, kv, g, d)
+    kf, vf = k.float(), v.float()
+    do = dout.float().reshape(b, sq, kv, g, d)
+    row_lse = lse.float().reshape(b, kv, g, sq)[..., None]
+    p = torch.exp(torch.einsum("bqhgd,bkhd->bhgqk", qf, kf) * scale - row_lse)
+    mask = _mask(sq, sk, causal, window, q.device)
+    keep = torch.isfinite(row_lse) if mask is None else mask & torch.isfinite(
+        row_lse)
+    p = torch.where(keep, p, 0.0)
+    delta = (do * out.float().reshape(b, sq, kv, g, d)).sum(-1)
+    dp = torch.einsum("bqhgd,bkhd->bhgqk", do, vf)
+    ds = p * (dp - delta.permute(0, 2, 3, 1)[..., None])
+    dv = torch.einsum("bhgqk,bqhgd->bkhd", p, do)
+    dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, qf) * scale
+    dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, kf).reshape(b, sq, h, d) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def _check(q, k, v, window):
@@ -101,8 +167,10 @@ def kernel_strides(t: torch.Tensor):
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         causal: bool = True, window: int = 0):
-    """q (B, Sq, H, D), k/v (B, Sk, KV, D) -> (B, Sq, H, D) in q's type.
+                         causal: bool = True, window: int = 0,
+                         return_lse: bool = False):
+    """q (B, Sq, H, D), k/v (B, Sk, KV, D) -> (B, Sq, H, D) in q's type, and
+    with ``return_lse`` also the (B, H, Sq) f32 log-sum-exp of each row.
 
     Inputs are read where they lie, at their strides. A bf16 input that TMA
     cannot read there (:func:`tma_readable`: a base address not 16-byte
@@ -110,7 +178,10 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     copied to fresh contiguous memory; an f32 input only when its last
     dimension is not contiguous."""
     if not on_cuda(q):
-        return flash_attention_ref(q, k, v, causal, window)
+        out = flash_attention_ref(q, k, v, causal, window)
+        if return_lse:
+            return out, flash_attention_lse_ref(q, k, causal, window)
+        return out
     _check(q, k, v, window)
     if q.dtype == torch.bfloat16:
         q, k, v = (t if tma_readable(t)
@@ -122,8 +193,10 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, sq, h, d = q.shape
     sk, kv = k.shape[1], k.shape[2]
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     if out.numel() == 0:
-        return out
+        return (out, lse) if return_lse else out
     strides = (ctypes.c_longlong * 9)(*(
         st for t in (q, k, v) for st in kernel_strides(t)))
     lib = build.library()
@@ -131,7 +204,77 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         build.count_launch("flash_attention")
         build.check(lib.repro_flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(),
             b, sq, sk, h, kv, d, ctypes.addressof(strides), int(causal),
             int(window), DTYPES[q.dtype], build.stream_of(q),
         ), "flash_attention")
-    return out
+    return (out, lse) if return_lse else out
+
+
+def flash_attention_bwd_cuda(q, k, v, out, dout, lse, causal: bool = True,
+                             window: int = 0):
+    """The gradient of :func:`flash_attention_cuda` at (q, k, v): ``out``
+    its output, ``dout`` the output's gradient (both (B, Sq, H, D) in q's
+    type), ``lse`` its (B, H, Sq) f32 log-sum-exp -> (dq, dk, dv), fresh
+    contiguous tensors in q's type. Read at their strides (a last
+    dimension that is not contiguous is copied first)."""
+    if not on_cuda(q):
+        return flash_attention_bwd_ref(q, k, v, out, dout, lse, causal,
+                                       window)
+    _check(q, k, v, window)
+    b, sq, h, d = q.shape
+    sk, kv = k.shape[1], k.shape[2]
+    for name, t in (("out", out), ("dout", dout)):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+            raise TypeError(f"{name}: expected {tuple(q.shape)} {q.dtype} on "
+                            f"{q.device}, got {tuple(t.shape)} {t.dtype} on "
+                            f"{t.device}")
+    if (lse.shape != (b, h, sq) or lse.dtype != torch.float32
+            or lse.device != q.device):
+        raise TypeError(f"lse: expected ({b}, {h}, {sq}) f32 on {q.device}, "
+                        f"got {tuple(lse.shape)} {lse.dtype} on {lse.device}")
+    q, k, v, out, dout = (t if t.stride(-1) == 1 else t.contiguous()
+                          for t in (q, k, v, out, dout))
+    lse = lse.contiguous()
+    if min(b, sq, sk, h) == 0:
+        return (torch.zeros((b, sq, h, d), dtype=q.dtype, device=q.device),
+                torch.zeros((b, sk, kv, d), dtype=q.dtype, device=q.device),
+                torch.zeros((b, sk, kv, d), dtype=q.dtype, device=q.device))
+    dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    dk = torch.empty((b, sk, kv, d), dtype=q.dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    strides = (ctypes.c_longlong * 15)(*(
+        st for t in (q, k, v, out, dout) for st in kernel_strides(t)))
+    lib = build.library()
+    with torch.cuda.device(q.device):
+        build.count_launch("flash_attention_bwd")
+        build.check(lib.repro_flash_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), b, sq, sk, h, kv, d,
+            ctypes.addressof(strides), int(causal), int(window),
+            DTYPES[q.dtype], build.stream_of(q),
+        ), "flash_attention_bwd")
+    return dq, dk, dv
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Attention with both directions on the card: the forward kernel
+    (which also writes the lse), and the backward kernels on the saved q,
+    k, v, out and lse."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        out, lse = flash_attention_cuda(q, k, v, causal, window,
+                                        return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd_cuda(q, k, v, out, dout, lse,
+                                              ctx.causal, ctx.window)
+        return dq, dk, dv, None, None

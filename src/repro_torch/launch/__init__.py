@@ -1,1 +1,2 @@
-"""Launchers of the model zoo (port of ``repro.launch``): serving only."""
+"""Launchers of the model zoo (port of ``repro.launch``): serving
+(:mod:`.serve`) and training (:mod:`.train`)."""

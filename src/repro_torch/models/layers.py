@@ -12,8 +12,12 @@ and activations, f32 reductions.
 On a CUDA tensor :func:`rmsnorm` launches the RMSNorm kernel, and
 :func:`gqa_attention`, :func:`mla_attention` and the encoder-decoder's
 cross-attention the flash-attention kernel; on a CPU tensor they take the
-kernels' plain versions. The decode steps and the MoE stay plain PyTorch,
-as the reference computes them outside any Pallas kernel. The sharding
+kernels' plain versions. Where autograd records (training), both kernels'
+gradients are their backward kernels on the card (each kernel's
+``torch.autograd.Function``), and autograd differentiates the plain
+versions on the CPU. :func:`cross_entropy` is the reference's loss. The
+decode steps and the MoE stay plain PyTorch, as the reference computes
+them outside any Pallas kernel. The sharding
 helpers of the reference (``constrain``, ``activation_sharding``,
 ``spec_for``, ``build_param_specs``, ``LAYOUT``) have no meaning on one
 card and are not ported: the MoE's token groups are the reference's count
@@ -46,8 +50,9 @@ def _normal(gen: torch.Generator, shape, scale) -> torch.Tensor:
 
 
 def _param(t: torch.Tensor) -> nn.Parameter:
-    # inference only: no autograd graph is ever recorded
-    return nn.Parameter(t, requires_grad=False)
+    # trainable; serving runs under torch.inference_mode, which records no
+    # graph whatever a parameter's requires_grad
+    return nn.Parameter(t)
 
 
 class Dense(nn.Module):
@@ -106,6 +111,16 @@ def rmsnorm(x, scale, eps=1e-5):
     out = _rmsnorm_kernel(x, scale, eps)
     want = torch.promote_types(x.dtype, scale.dtype)
     return out if out.dtype == want else out.to(want)
+
+
+def cross_entropy(logits, labels):
+    """Mean next-token loss, the reference's: f32 log-sum-exp minus the
+    gold logit, gathered (no one-hot of the vocabulary). logits (..., V),
+    labels (...) int -> () f32."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = lf.gather(-1, labels[..., None].long())[..., 0]
+    return (lse - gold).mean()
 
 
 def _promoted(*ts):

@@ -18,11 +18,14 @@ parameter names: its stacked layers (``layers``, ``first``, ``blocks`` with
 their nested ``mamba``/``mlstm`` stacks, ``enc_layers``, ``dec_layers``)
 are ``nn.ModuleList``s indexed where the reference has a leading axis, and
 run as a plain Python loop where the reference scans (its ``remat`` and
-``unroll`` knobs are ignored). The port runs inference only: ``forward``
-(full-sequence logits, through the flash-attention kernel where the family
-attends) and ``decode_step`` (one token through the cache, updated in
-place), with the RMSNorm kernel at every norm. The loss and training are
-not ported (ROADMAP.md queue A item 6).
+``unroll`` knobs are ignored). Serving: ``forward`` (full-sequence logits,
+through the flash-attention kernel where the family attends) and
+``decode_step`` (one token through the cache, updated in place), with the
+RMSNorm kernel at every norm, both under ``torch.inference_mode``.
+Training: ``loss(batch)``, the reference's mean next-token cross entropy,
+through the same forward body with autograd recording, so that on the card
+the two kernels' backward kernels give the gradients
+(``repro_torch.training``).
 """
 from __future__ import annotations
 
@@ -132,8 +135,15 @@ class _LM(nn.Module):
         return sum(p.numel() for p in self.parameters())
 
     def _embed(self, tokens):
-        b, s = tokens.shape
-        return self.embed.index_select(0, tokens.reshape(-1)).reshape(b, s, -1)
+        # a gather, as the reference's embed[tokens]; its gradient on the
+        # card sums each row's contributions in a fixed (sorted) order
+        return torch.nn.functional.embedding(tokens, self.embed)
+
+    def _batch(self, batch) -> Dict[str, torch.Tensor]:
+        """The batch's arrays (numpy or tensors) as tensors on the model's
+        device."""
+        return {k: torch.as_tensor(v, device=self.device)
+                for k, v in batch.items()}
 
     def _logits(self, x):
         x = L.rmsnorm(x, self.ln_f, self.cfg.norm_eps)
@@ -154,7 +164,7 @@ class DecoderLM(_LM):
     """The decoder of the dense, moe and vlm families. It holds its
     weights, so it takes no ``params`` argument where the reference's
     functional ``Model`` facade does; ``forward`` and ``decode_step`` run
-    under ``torch.inference_mode``."""
+    under ``torch.inference_mode``, ``loss`` records for autograd."""
 
     def __init__(self, cfg: ArchConfig, ini: Init):
         """Weights from ``ini`` with the reference's distributions: N(0,
@@ -185,6 +195,22 @@ class DecoderLM(_LM):
     def forward(self, tokens, patch_embeds=None):
         """tokens (B,S) int [, patch_embeds (B,P,d)] -> logits (B,P+S,V),
         the patches (cast to bf16 and projected) before the tokens."""
+        return self._forward(tokens, patch_embeds)
+
+    def loss(self, batch):
+        """The reference's ``loss(params, batch)`` without ``params`` (the
+        model holds its weights): mean cross entropy of the logits at
+        positions 0..S-2 against ``labels`` 1..S-1, the vlm's patch
+        positions dropped first. ``batch``: ``tokens``, ``labels`` and the
+        vlm's ``patch_embeds``, numpy arrays or tensors."""
+        batch = self._batch(batch)
+        pe = batch.get("patch_embeds")
+        logits = self._forward(batch["tokens"], pe)
+        if pe is not None:
+            logits = logits[:, pe.shape[1]:]
+        return L.cross_entropy(logits[:, :-1], batch["labels"][:, 1:])
+
+    def _forward(self, tokens, patch_embeds=None):
         cfg = self.cfg
         x = self._embed(tokens)
         if patch_embeds is not None:
@@ -251,6 +277,16 @@ class HybridLM(_LM):
     def forward(self, tokens, window=0):
         """tokens (B,S) -> logits (B,S,V); ``window`` > 0 limits the shared
         attention to the last ``window`` keys (the flash kernel's window)."""
+        return self._forward(tokens, window)
+
+    def loss(self, batch):
+        """The reference's ``loss(params, batch)`` without ``params``: mean
+        next-token cross entropy of ``tokens`` against ``labels``."""
+        batch = self._batch(batch)
+        logits = self._forward(batch["tokens"])
+        return L.cross_entropy(logits[:, :-1], batch["labels"][:, 1:])
+
+    def _forward(self, tokens, window=0):
         cfg = self.cfg
         x = self._embed(tokens)
         b, s, _ = x.shape
@@ -337,6 +373,17 @@ class XLSTMLM(_LM):
 
     @torch.inference_mode()
     def forward(self, tokens):
+        """tokens (B,S) -> logits (B,S,V)."""
+        return self._forward(tokens)
+
+    def loss(self, batch):
+        """The reference's ``loss(params, batch)`` without ``params``: mean
+        next-token cross entropy of ``tokens`` against ``labels``."""
+        batch = self._batch(batch)
+        logits = self._forward(batch["tokens"])
+        return L.cross_entropy(logits[:, :-1], batch["labels"][:, 1:])
+
+    def _forward(self, tokens):
         cfg = self.cfg
         x = self._embed(tokens)
         for sp in self.blocks:
@@ -456,6 +503,18 @@ class EncDecLM(_LM):
 
     @torch.inference_mode()
     def forward(self, tokens, frames):
+        """tokens (B,S), frames (B, encoder_seq, d) -> logits (B,S,V)."""
+        return self._forward(tokens, frames)
+
+    def loss(self, batch):
+        """The reference's ``loss(params, batch)`` without ``params``: mean
+        next-token cross entropy of ``tokens`` (decoded over ``frames``)
+        against ``labels``."""
+        batch = self._batch(batch)
+        logits = self._forward(batch["tokens"], batch["frames"])
+        return L.cross_entropy(logits[:, :-1], batch["labels"][:, 1:])
+
+    def _forward(self, tokens, frames):
         cfg = self.cfg
         enc = self.encode(frames)
         x = self._embed(tokens)
@@ -586,6 +645,20 @@ def flatten_params(tree: Dict[str, Any], prefix: str = "",
         else:
             flatten_params(val, name + ".", out)
     return out
+
+
+def reference_ranks(model: nn.Module) -> Dict[str, int]:
+    """Each parameter's rank in the reference's pytree: its own, plus one
+    for each stacked subtree (:data:`STACKS`) it lies in (``layers.3.ln1``
+    is a row of the reference's (L, d) ``layers.ln1``;
+    ``blocks.0.mamba.1.m.A_log`` of a (n_super, attn_every, h) stack). The
+    reference's AdamW decays the leaves of rank 2 and more."""
+    ranks = {}
+    for name, p in model.named_parameters():
+        parts = name.split(".")
+        ranks[name] = p.dim() + sum(a in STACKS and b.isdigit()
+                                    for a, b in zip(parts, parts[1:]))
+    return ranks
 
 
 def _first_leaf(tree):

@@ -106,7 +106,8 @@ def chunked_linear_attention(q, k, v, decay, chunk):
     mask = torch.ones((chunk, chunk), dtype=torch.bool,
                       device=v.device).tril()[None, None, :, :, None]
     cdtype = vc.dtype
-    w = pair.mul_(scores).mul_(mask).to(cdtype)           # scores*pair*mask
+    # pair * scores * mask, out of place on pair (exp's saved output)
+    w = (pair * scores).mul_(mask).to(cdtype)
     y_intra = einsum("bcijh,bcjhp->bcihp", w, vc)
 
     # per-chunk outgoing state: S_c = sum_j exp(cum_L - cum_j) k_j v_j^T
@@ -310,11 +311,12 @@ def slstm_forward(cfg: ArchConfig, p: SLSTM, x):
     pre_all = matmul(x, p.w_in.w).reshape(b, s, h, 4 * dh)
     c = torch.zeros((b, h, dh), dtype=torch.float32, device=x.device)
     hidden = torch.zeros((b, h, dh), dtype=DTYPE, device=x.device)
-    ys = torch.empty((b, s, h, dh), dtype=DTYPE, device=x.device)
+    ys = []
     for t in range(s):
         c, hidden = _slstm_cell(p, pre_all[:, t], c, hidden)
-        ys[:, t] = hidden
-    y = rmsnorm(ys.reshape(b, s, d), p.out_norm, cfg.norm_eps)
+        ys.append(hidden)
+    y = rmsnorm(torch.stack(ys, dim=1).reshape(b, s, d), p.out_norm,
+                cfg.norm_eps)
     return matmul(y, p.proj.w)
 
 

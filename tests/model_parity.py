@@ -24,7 +24,7 @@ TOL = 3e-2
 
 def f32(x):
     if isinstance(x, torch.Tensor):
-        return x.float().numpy()
+        return x.detach().float().numpy()
     return np.asarray(x, np.float32)
 
 

@@ -1045,3 +1045,166 @@ def test_card_calibration_keeps_the_kernels(cuda_device, monkeypatch):
               dataclasses.replace(cfg, cost_model="off"), device="cpu")
     assert res.patterns == ref.patterns
     costmodel.clear_cache()
+
+
+# ---------------------------------------------------------------------------
+# Training: the backward kernels, the forward's lse, a train step
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("scale_dtype", MODEL_DTYPES)
+@pytest.mark.parametrize("dtype", MODEL_DTYPES)
+@pytest.mark.parametrize("rows,d", [(1024, 576), (4096, 2048), (7, 100),
+                                    (600, 5120)])
+def test_rmsnorm_bwd_kernel_matches_plain_version(cuda_device, rows, d,
+                                                  dtype, scale_dtype):
+    """The backward kernel against its plain version on the same x, scale
+    and dy: both compute in f32 and round once, so f32 within 1e-5 of the
+    largest value (summation order) and bf16 within one rounding step
+    (2^-7) of it; two runs give the same bits (no atomics). (7, 100) takes
+    the scalar units; 600 rows cover a grid of fewer blocks than rows
+    (rows 512 + c and c share a block). Through :func:`rmsnorm` with
+    autograd recording, both directions launch their kernels."""
+    from repro_torch.kernels.rmsnorm.rmsnorm import (
+        rmsnorm, rmsnorm_bwd_cuda, rmsnorm_bwd_ref)
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    x = torch.randn((rows, d), generator=g, device=cuda_device).to(dtype)
+    scale = (1 + 0.1 * torch.randn((d,), generator=g,
+                                   device=cuda_device)).to(scale_dtype)
+    dy = torch.randn((rows, d), generator=g, device=cuda_device).to(dtype)
+    before = build.LAUNCHES["rmsnorm_bwd"]
+    dx, ds = rmsnorm_bwd_cuda(x, scale, dy)
+    dx2, ds2 = rmsnorm_bwd_cuda(x, scale, dy)
+    want_dx, want_ds = rmsnorm_bwd_ref(x, scale, dy)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["rmsnorm_bwd"] == before + 2
+    assert dx.dtype == dtype and ds.dtype == scale_dtype
+    assert torch.equal(dx, dx2) and torch.equal(ds, ds2)
+    for got, want, t in ((dx, want_dx, dtype), (ds, want_ds, scale_dtype)):
+        tol = 1e-5 if t == torch.float32 else 2**-7
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= tol * want.float().abs().max().item(), (err, tol)
+
+    xr = x.clone().requires_grad_()
+    sr = scale.clone().requires_grad_()
+    fwd, bwd = build.LAUNCHES["rmsnorm"], build.LAUNCHES["rmsnorm_bwd"]
+    rmsnorm(xr, sr).backward(dy)
+    assert build.LAUNCHES["rmsnorm"] == fwd + 1
+    assert build.LAUNCHES["rmsnorm_bwd"] == bwd + 1
+    assert torch.equal(xr.grad, dx) and torch.equal(sr.grad, ds)
+
+
+#: flash backward cases: (b, sq, sk, h, kv, d, causal, window, layout)
+FLASH_BWD_CASES = [
+    (2, 200, 200, 6, 2, 64, True, 0, "contiguous"),   # GQA, ragged tiles
+    (2, 130, 130, 8, 2, 64, True, 0, "fused"),        # strided views
+    (1, 300, 300, 4, 2, 80, True, 100, "contiguous"), # zamba2's window, D 80
+    (2, 100, 333, 4, 4, 64, False, 0, "contiguous"),  # cross-attention
+    (1, 150, 150, 4, 4, 192, True, 0, "contiguous"),  # MLA's D = 192
+    (1, 96, 64, 2, 1, 256, True, 0, "contiguous"),    # D 256, Sq > Sk
+]
+
+
+@pytest.mark.parametrize("dtype", MODEL_DTYPES)
+@pytest.mark.parametrize("b,sq,sk,h,kv,d,causal,window,layout",
+                         FLASH_BWD_CASES)
+def test_flash_bwd_kernel_matches_plain_version(cuda_device, b, sq, sk, h,
+                                                kv, d, causal, window,
+                                                layout, dtype):
+    """The forward's lse against the plain log-sum-exp (1e-4), and the
+    backward kernels against their plain version on the same q, k, v, out,
+    dout and lse: f32 within 1e-4 of each output's largest value
+    (summation order), bf16 within 1e-2 of it (each output rounded once
+    from f32; an order difference can move a rounding by one step, 2^-8).
+    Two runs give the same bits; through ``ops.flash_attention`` with
+    autograd recording, both directions launch their kernels."""
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention_bwd_cuda, flash_attention_bwd_ref,
+        flash_attention_lse_ref)
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=cuda_device).manual_seed(11)
+    q, k, v = _flash_inputs(g, cuda_device, dtype, b, sq, sk, h, kv, d,
+                            layout)
+    out, lse = flash_attention_cuda(q, k, v, causal, window, return_lse=True)
+    dout = torch.randn(out.shape, generator=g, device=cuda_device).to(dtype)
+    want_lse = flash_attention_lse_ref(q, k, causal, window)
+    torch.cuda.synchronize()
+    assert lse.shape == (b, h, sq) and lse.dtype == torch.float32
+    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=0)
+    before = build.LAUNCHES["flash_attention_bwd"]
+    got = flash_attention_bwd_cuda(q, k, v, out, dout, lse, causal, window)
+    again = flash_attention_bwd_cuda(q, k, v, out, dout, lse, causal, window)
+    want = flash_attention_bwd_ref(q, k, v, out, dout, lse, causal, window)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["flash_attention_bwd"] == before + 2
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    for name, a, a2, w in zip(("dq", "dk", "dv"), got, again, want):
+        assert a.shape == w.shape and a.dtype == dtype, name
+        assert torch.equal(a, a2), name
+        err = (a.float() - w.float()).abs().max().item()
+        assert err <= tol * w.float().abs().max().item(), (name, err)
+
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    fwd, bwd = (build.LAUNCHES["flash_attention"],
+                build.LAUNCHES["flash_attention_bwd"])
+    flash_attention(*leaves, causal, window).backward(dout)
+    assert build.LAUNCHES["flash_attention"] == fwd + 1
+    assert build.LAUNCHES["flash_attention_bwd"] == bwd + 1
+    for name, leaf, a in zip(("dq", "dk", "dv"), leaves, got):
+        assert torch.equal(leaf.grad, a), name
+
+
+def test_train_step_on_the_card_matches_cpu(cuda_device):
+    """Reduced smollm-135m in f32, the same weights on the card and on the
+    CPU: the loss and every gradient leaf agree (1e-4 relative RMS a leaf;
+    TF32 off), both directions of both kernels launched on the card, and
+    one step of ``make_train_step`` gives the same loss and weights (1e-4
+    relative RMS a leaf; AdamW divides by sqrt(v), which amplifies a
+    gradient's last bits where it is near zero)."""
+    import copy
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models import make_batch
+    from repro_torch.training.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.training.train_step import make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = ARCHS["smollm-135m"].reduced()
+    cpu = build_model(cfg, device="cpu", seed=0).float()
+    card = copy.deepcopy(cpu).to(cuda_device)
+    batch = make_batch(cfg, ShapeConfig("t", seq_len=64, global_batch=2,
+                                        kind="train"),
+                       torch.Generator().manual_seed(2))
+
+    def rel_rms(a, b):
+        a, b = a.detach().float().cpu(), b.detach().float().cpu()
+        return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+
+    before = dict(build.LAUNCHES)
+    loss_card = card.loss(batch)
+    loss_card.backward()
+    torch.cuda.synchronize()
+    for name in ("rmsnorm", "rmsnorm_bwd"):
+        assert build.LAUNCHES[name] - before[name] == 2 * cfg.n_layers + 1
+    for name in ("flash_attention", "flash_attention_bwd"):
+        assert build.LAUNCHES[name] - before[name] == cfg.n_layers
+    loss_cpu = cpu.loss(batch)
+    loss_cpu.backward()
+    assert abs(loss_card.item() - loss_cpu.item()) <= 1e-5 * loss_cpu.item()
+    for (name, pc), pk in zip(cpu.named_parameters(), card.parameters()):
+        assert rel_rms(pk.grad, pc.grad) <= 1e-4, name
+
+    opt = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    results = []
+    for model in (cpu, card):
+        model.zero_grad(set_to_none=True)
+        step = make_train_step(model, opt)
+        state = init_opt_state(dict(model.named_parameters()))
+        state, metrics = step(state, batch)
+        results.append((metrics, model))
+    (m_cpu, cpu), (m_card, card) = results
+    assert int(m_card["skipped"]) == 0
+    assert abs(m_card["loss"].item() - m_cpu["loss"].item()) <= 1e-5 * abs(
+        m_cpu["loss"].item())
+    for (name, pc), pk in zip(cpu.named_parameters(), card.parameters()):
+        assert rel_rms(pk, pc) <= 1e-4, name

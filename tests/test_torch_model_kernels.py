@@ -48,7 +48,7 @@ def _both(a, dtype):
 
 def _f32(x):
     if isinstance(x, torch.Tensor):
-        return x.float().numpy()
+        return x.detach().float().numpy()
     return np.asarray(x, np.float32)
 
 

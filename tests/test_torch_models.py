@@ -51,7 +51,7 @@ F32_TOL = 1e-3      # f32 weights, bf16 KV cache
 
 def _f32(x):
     if isinstance(x, torch.Tensor):
-        return x.float().numpy()
+        return x.detach().float().numpy()
     return np.asarray(x, np.float32)
 
 
