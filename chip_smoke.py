@@ -17,7 +17,8 @@ Phases, in order; any failure exits non-zero and prints no result:
      the canonical refine also on seeded codes of every nv from 2 to 8,
      with and without orbits; the halo gather and the tile check on the
      partitioned layout (``to_partitioned(mico_like(0.1), 4)``, the halo
-     of the first size-2 chunk); the stream compaction also at B of 0, 1,
+     of the first size-2 chunk), the gather's host time a call split into
+     its pieces; the stream compaction also at B of 0, 1,
      one tile, one tile + 1 and 4 x 132 tiles, masks all false, all true
      and random, out_cap 0, below and above the count, flags at byte
      offset 3, each case twice, and timed at ``halo_unique``'s shape;
@@ -245,13 +246,15 @@ Phases, in order; any failure exits non-zero and prints no result:
      a. the RMSNorm backward kernel at smollm-135m's and stablelm-1.6b's
         norms (1,024 x 576, 8,192 x 2,048), the flash-attention backward
         kernels and the forward's lse at the training shapes (stablelm
-        4 x 2,048 with 32 heads of 64, smollm 8 x 128 with 9 over 3
-        heads, zamba2's window of 512 with heads of 80, MLA's D = 192,
-        whisper's unmasked encoder and its 448-over-1,500 cross-attention),
-        bf16 and f32, each against autograd through the plain f32 forward
-        (bf16 at most twice the plain bf16 autograd's error plus one bf16
-        step, f32 within 1e-4 relative, the lse within 1e-4), timed beside
-        its plain version, its bound and the library's backward;
+        4 x 2,048 with 32 heads of 64, qwen2.5-14b's 40 over 8 heads of
+        128, smollm 8 x 128 with 9 over 3 heads, zamba2's window of 512
+        with heads of 80, MLA's D = 192, whisper's unmasked encoder and its
+        448-over-1,500 cross-attention), bf16 (the tensor cores) and f32
+        (the CUDA cores), each against autograd through the plain f32
+        forward (bf16 at most twice the plain bf16 autograd's error plus
+        one bf16 step, f32 within 1e-4 relative, the lse within 1e-4), two
+        calls bit for bit, timed beside its plain version, its bound and
+        SDPA's backward through autograd;
      b. every registry arch reduced, the same weights on the card and on
         the CPU: the loss and every gradient leaf against the CPU's f32 run
         under 6b's rule (the MoE archs routed as their f32 run), then 5
@@ -291,8 +294,9 @@ parent commit unpacked under ``archive_check/``) and of this checkout's:
 the expansion at the chunk and at the wide shape of phase 3, the whole
 radix sort and ``seg_unique`` at the chunk and level-2 shapes of phases 3
 and 5, the canonical refine at the level-2 table and on the seeded codes
-of every nv from 2 to 8, in turns (parent, change, change, parent), each
-in a process of its own.
+of every nv from 2 to 8, the halo gather at phase 3's tiles and the bf16
+flash backward at stablelm-1.6b's training shape, in turns (parent,
+change, change, parent), each in a process of its own.
 
     python3 chip_smoke.py --fsm-full-depth
 
@@ -310,6 +314,7 @@ import io
 import json
 import math
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -989,11 +994,32 @@ def library_gather(torch, table, rows, fill):
     return out.masked_fill_(~ok[:, None], fill)
 
 
+def first_halo(torch, np, pg, g) -> dict:
+    """The first size-2 chunk of the partitioned main path (the first
+    ``CHUNK`` edges of ``g`` on ``pg``): its members, their halo's
+    vertices, the halo (``halo_unique`` through the compaction kernel) and
+    its flat rows in the shard-stacked tables, -1 past the halo."""
+    from repro_torch.core import explore
+    from repro_torch.kernels import gather
+
+    dev = pg.device
+    members = torch.from_numpy(g.edges[:CHUNK].astype(np.int32)).to(dev)
+    n_valid = torch.full((CHUNK,), 2, dtype=torch.int32, device=dev)
+    cap = explore.halo_cap(members.shape, "vertex", pg.n)
+    verts = explore.halo_vertices(pg, members, n_valid, "vertex")
+    uniq, count = gather.halo_unique(verts, pg.n, cap, use_kernel=True)
+    fi, ok = pg.flat_index(uniq)
+    return {"members": members, "n_valid": n_valid, "cap": cap,
+            "verts": verts, "uniq": uniq, "count": count,
+            "fi": torch.where(ok, fi, -1)}
+
+
 def partition_checks(torch, np, G, g):
     """Phase 3, partitioned layout: the halo gather and the tile check
     against their plain versions at the shapes the first size-2 chunk of
-    the partitioned main path gives them. Returns the two kernel rows and
-    the partitioned graph (for the sync check)."""
+    the partitioned main path gives them, and the gather's host time split
+    into its pieces. Returns the two kernel rows and the partitioned graph
+    (for the sync check)."""
     from repro_torch.core import explore
     from repro_torch.kernels import compact, gather
     from repro_torch.kernels.canonical_check.canonical_check import (
@@ -1002,21 +1028,17 @@ def partition_checks(torch, np, G, g):
 
     pg = G.to_partitioned(g, PARTS)
     dev = pg.device
-    members = torch.from_numpy(g.edges[:CHUNK].astype(np.int32)).to(dev)
-    n_valid = torch.full((CHUNK,), 2, dtype=torch.int32, device=dev)
+    halo = first_halo(torch, np, pg, g)
+    members, n_valid, cap = halo["members"], halo["n_valid"], halo["cap"]
+    verts, fi = halo["verts"], halo["fi"]
     c, k, d = members.shape[0], members.shape[1], pg.max_degree
     w = pg.adj_sh.shape[2]
-    cap = explore.halo_cap(members.shape, "vertex", pg.n)
-    verts = explore.halo_vertices(pg, members, n_valid, "vertex")
-    uniq, count = gather.halo_unique(verts, pg.n, cap, use_kernel=True)
     want = gather.halo_unique(verts, pg.n, cap, use_kernel=False)
     torch.cuda.synchronize()
-    need(max_abs_err(torch, (uniq, count), want) == 0,
+    need(max_abs_err(torch, (halo["uniq"], halo["count"]), want) == 0,
          "halo_unique through the compaction kernel differs from its plain "
          "version")
-    fi, ok = pg.flat_index(uniq)
-    fi = torch.where(ok, fi, -1)
-    n_hit = int(count)
+    n_hit = int(halo["count"])
     log(f"  partitioned: bounds {pg.part_offsets.tolist()}, "
         f"{pg.tile_rows} rows per shard, halo {n_hit} of U={cap}")
     info = {"part_offsets": pg.part_offsets.tolist(),
@@ -1061,6 +1083,8 @@ def partition_checks(torch, np, G, g):
             lib_ms)
     rows.append(gathers["nbr"])
     info["gather_rows_adj"] = gathers["adj"]
+    info["gather_host_us"] = gather_host_pieces(
+        torch, pg.nbr_sh.reshape(-1, d), fi, -1)
 
     # -- canonical_check_tiles: the chunk's flat candidate batch -----------
     view = explore.build_tile_view(pg, members, n_valid, "vertex",
@@ -3371,6 +3395,78 @@ def model_kernel_checks(torch):
 #: the turns in which the wrapper and F.rms_norm share them
 HOST_CALLS = 10_000
 HOST_TURNS = 10
+#: calls of a host piece that launches the gather (0.06 ms of device time
+#: each): few enough that the launch queue never fills and blocks the host
+GATHER_LAUNCH_CALLS = 200
+
+
+def host_us(torch, piece, calls: int) -> float:
+    """Host microseconds a call of ``piece()`` over ``calls`` calls after
+    100 untimed ones, the card idle before and after."""
+    for _ in range(100):
+        piece()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        piece()
+    t = (time.perf_counter() - t0) * 1e6 / calls
+    torch.cuda.synchronize()
+    return t
+
+
+def gather_host_pieces(torch, table, rows, fill) -> dict:
+    """Phase 3: host microseconds a call of the halo gather at the
+    neighbour tile's shape, with the host clock: the wrapper and the
+    library gather (``index_select`` and the fill mask) over
+    ``GATHER_LAUNCH_CALLS`` calls, as is the C entry by ``ctypes`` with its
+    launch; over ``HOST_CALLS`` calls each, the other pieces the wrapper
+    runs (the output allocation, the raw stream, the current device, the
+    two contiguity probes, ``get_device``, ``int(fill)``) beside the forms
+    it ran before (a ``torch.cuda.Stream`` object a call, a device guard,
+    two ``contiguous()``, ``build.library()``)."""
+    from repro_torch.kernels import build, gather
+
+    dev = table.get_device()
+    u, r = rows.shape[0], table.shape[1]
+    out = torch.empty((u, r), dtype=torch.int32, device=table.device)
+    fn = build.library().repro_gather_rows
+    stream = build.raw_stream(dev)
+    args = (table.data_ptr(), table.shape[0], r, rows.data_ptr(), u, fill,
+            out.data_ptr())
+
+    def guard():
+        with torch.cuda.device(table.device):
+            pass
+
+    launching = {
+        "wrapper (gather_rows_cuda)": lambda: gather.gather_rows_cuda(
+            table, rows, fill),
+        "index_select + fill mask": lambda: library_gather(
+            torch, table, rows, fill),
+        "C entry by ctypes, launch included": lambda: fn(*args, stream),
+    }
+    pieces = {
+        "torch.empty": lambda: torch.empty((u, r), dtype=torch.int32,
+                                           device=table.device),
+        "build.raw_stream": lambda: build.raw_stream(dev),
+        "torch.cuda.current_device": torch.cuda.current_device,
+        "two is_contiguous": lambda: (table.is_contiguous(),
+                                      rows.is_contiguous()),
+        "get_device": table.get_device,
+        "int(fill)": lambda: int(fill),
+        "torch.cuda.current_stream().cuda_stream": lambda: build.stream_of(
+            table),
+        "with torch.cuda.device": guard,
+        "two contiguous()": lambda: (table.contiguous(), rows.contiguous()),
+        "build.library()": build.library,
+    }
+    us = {name: host_us(torch, piece, GATHER_LAUNCH_CALLS)
+          for name, piece in launching.items()}
+    us.update((name, host_us(torch, piece, HOST_CALLS))
+              for name, piece in pieces.items())
+    log("  gather_rows host us a call at the neighbour tile: " + "; ".join(
+        f"{k} {v:.2f}" for k, v in us.items()))
+    return us
 
 
 def rmsnorm_host_pieces(torch) -> dict:
@@ -3421,26 +3517,15 @@ def rmsnorm_host_pieces(torch) -> dict:
         "build.library()": build.library,
         "ctypes.c_float(eps)": lambda: ctypes.c_float(eps),
     }
-    def per_call(piece, calls):
-        for _ in range(100):
-            piece()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(calls):
-            piece()
-        t = (time.perf_counter() - t0) * 1e6 / calls
-        torch.cuda.synchronize()
-        return t
-
     # the two whole calls in turns (a b b a ...), HOST_CALLS each in all
     turns = {"wrapper (rmsnorm_cuda)": [], "F.rms_norm": []}
     names = list(turns)
     for r in range(HOST_TURNS):
         for name in (names if r % 2 == 0 else names[::-1]):
-            turns[name].append(per_call(pieces[name],
-                                        HOST_CALLS // HOST_TURNS))
+            turns[name].append(host_us(torch, pieces[name],
+                                       HOST_CALLS // HOST_TURNS))
     us = {name: statistics.median(t) for name, t in turns.items()}
-    us.update((name, per_call(piece, HOST_CALLS))
+    us.update((name, host_us(torch, piece, HOST_CALLS))
               for name, piece in pieces.items() if name not in turns)
     log("    host us a call at the decode shape: " + "; ".join(
         f"{k} {v:.2f}" for k, v in us.items()))
@@ -4564,14 +4649,24 @@ BWD_TIMING = dict(calls=3, windows=3, warmup=1)
 BWD_BF16_FLOOR = 2 ** -8
 #: 13a's f32 rule (relative to the output's largest value) and the lse's
 BWD_F32_TOL, LSE_TOL = 1e-4, 1e-4
-#: 13a's flash shapes: (label, B, Sq, Sk, H, KV, D, causal, window)
+#: 13a's flash shapes: (label, B, Sq, Sk, H, KV, D, causal, window,
+#: offset). ``offset`` > 0 adds to q and to k a vector common to every row
+#: of a head (offset x a standard normal draw), as trained activations
+#: carry: dS sums to zero along each query row, so the keys' common part
+#: cancels from dQ in exact arithmetic and an error in dS or in delta
+#: shows against it
 TRAIN_FLASH_SHAPES = (
-    ("stablelm-1.6b", 4, 2048, 2048, 32, 32, 64, True, 0),
-    ("smollm-135m", 8, 128, 128, 9, 3, 64, True, 0),
-    ("zamba2 window 512", 4, 2048, 2048, 32, 32, 80, True, 512),
-    ("MLA prefill (B = 1)", 1, 2048, 2048, 128, 128, 192, True, 0),
-    ("whisper encoder", 4, 1500, 1500, 8, 8, 64, False, 0),
-    ("whisper cross", 4, 448, 1500, 8, 8, 64, False, 0),
+    ("stablelm-1.6b", 4, 2048, 2048, 32, 32, 64, True, 0, 0),
+    ("stablelm-1.6b, q and k offset", 4, 2048, 2048, 32, 32, 64, True, 0,
+     2.0),
+    ("qwen2.5-14b (GQA)", 4, 2048, 2048, 40, 8, 128, True, 0, 0),
+    ("smollm-135m", 8, 128, 128, 9, 3, 64, True, 0, 0),
+    ("zamba2 window 512", 4, 2048, 2048, 32, 32, 80, True, 512, 0),
+    ("MLA prefill (B = 1)", 1, 2048, 2048, 128, 128, 192, True, 0, 0),
+    ("MLA prefill, q and k offset", 1, 2048, 2048, 128, 128, 192, True, 0,
+     2.0),
+    ("whisper encoder", 4, 1500, 1500, 8, 8, 64, False, 0, 0),
+    ("whisper cross", 4, 448, 1500, 8, 8, 64, False, 0, 0),
 )
 #: 13a's RMSNorm shapes: (label, rows, D)
 TRAIN_NORM_SHAPES = (("smollm-135m", 8 * 128, 576),
@@ -4677,11 +4772,17 @@ def train_kernel_checks(torch):
     for dtype in (torch.bfloat16, torch.float32):
         es = torch.finfo(dtype).bits // 8
         rate = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
-        for label, b, sq, sk, h, kv, d, causal, window in TRAIN_FLASH_SHAPES:
-            def draw(*shape):
-                return torch.randn(shape, generator=gen, device=dev).to(dtype)
-            q, k, v = draw(b, sq, h, d), draw(b, sk, kv, d), draw(b, sk, kv, d)
-            dout = draw(b, sq, h, d)
+        for (label, b, sq, sk, h, kv, d, causal, window,
+             offset) in TRAIN_FLASH_SHAPES:
+            def draw(*shape, common=0.0):
+                x = torch.randn(shape, generator=gen, device=dev)
+                if common:  # one vector a head, shared by its rows
+                    x += common * torch.randn((shape[0], 1, *shape[2:]),
+                                              generator=gen, device=dev)
+                return x.to(dtype)
+            q, k = draw(b, sq, h, d, common=offset), draw(b, sk, kv, d,
+                                                          common=offset)
+            v, dout = draw(b, sk, kv, d), draw(b, sq, h, d)
             out, lse = flash_attention_cuda(q, k, v, causal, window,
                                             return_lse=True)
             want_lse = flash_attention_lse_ref(q, k, causal, window)
@@ -4691,6 +4792,13 @@ def train_kernel_checks(torch):
             del want_lse
             got = flash_attention_bwd_cuda(q, k, v, out, dout, lse, causal,
                                            window)
+            again = flash_attention_bwd_cuda(q, k, v, out, dout, lse, causal,
+                                             window)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b_) for a, b_ in zip(got, again)):
+                bad.append(f"flash_attention_bwd {dtype} {label}: two calls "
+                           "differ")
+            del again
             fn = lambda a, b_, c: flash_attention_ref(a, b_, c, causal,
                                                       window)
             plain = grads_of(torch, fn, (q, k, v), dout)
@@ -4729,12 +4837,18 @@ def train_kernel_checks(torch):
                 "none: the port's own backward of src/repro/kernels/"
                 "flash_attention/flash_attention.py:68", err, timed,
                 plain_ms, nbytes, lib, ops=flops, op_rate=rate)
+            # flops a kept pair done: the dQ kernel recomputes S and dP; the
+            # bf16 kernels multiply by dS twice (its hi and lo terms) and,
+            # above D 64, run dK/dV in two passes that each recompute S^T
+            done = (14 if dtype != torch.bfloat16
+                    else 18 if d <= 64 else 20)
             log(f"    lse max_abs_err {lse_err:.2e}; kernel "
-                f"{14 * d * pairs * b * h / timed['ms'] / 1e9:.1f} TFLOP/s "
-                f"done (14 D a pair), {row['bound_ms'] / timed['ms']:.1%} of "
-                f"its bound, {timed['ms'] / lib:.2f}x SDPA's backward")
+                f"{done * d * pairs * b * h / timed['ms'] / 1e9:.1f} TFLOP/s "
+                f"done ({done} D a pair), {row['bound_ms'] / timed['ms']:.1%} "
+                f"of its bound, {timed['ms'] / lib:.2f}x SDPA's backward")
             cases.append(dict(row, shape=[b, sq, sk, h, kv, d],
-                              causal=causal, window=window, dtype=str(dtype),
+                              causal=causal, window=window, offset=offset,
+                              dtype=str(dtype),
                               at=label, outputs=recs, lse_err=lse_err))
             if dtype == torch.bfloat16 and label == TRAIN_ARCH:
                 rows["flash_attention_bwd"] = row
@@ -4923,6 +5037,8 @@ def train_main_path(torch, build, totals) -> dict:
     checkpoint trains steps 5..9, whose losses must equal the uninterrupted
     run's bit for bit. Launches of the two counted runs are added to
     ``totals``."""
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        BWD_COPIES)
     from repro_torch.launch import train
     from repro_torch.training import checkpoint as ckpt
     from repro_torch.training.data import DataConfig, global_batch
@@ -4946,11 +5062,13 @@ def train_main_path(torch, build, totals) -> dict:
         want = train_launches(model.cfg)
         torch.cuda.reset_peak_memory_stats()
         build.reset_launches()
+        copies = BWD_COPIES["flash_attention_bwd"]
         t0 = time.perf_counter()
         with Timed(ckpt, "save", "restore") as io_s:
             state, hist = loop.run(batches)
         torch.cuda.synchronize()
         out["run_s"] = time.perf_counter() - t0
+        out["bwd_tma_copies"] = BWD_COPIES["flash_attention_bwd"] - copies
         out["save_s"] = io_s["save"]
         out["peak_bytes"] = torch.cuda.max_memory_allocated()
         got = {k: build.LAUNCHES[k] for k in want}
@@ -4984,7 +5102,8 @@ def train_main_path(torch, build, totals) -> dict:
             f"{out['tokens_per_s']:,.0f} tokens/s, peak "
             f"{out['peak_bytes'] / 1e9:.2f} GB; launches a step {want} "
             f"(the backward's {want['flash_attention_bwd']} calls launch "
-            "3 kernels each, its rmsnorm_bwd calls 2)")
+            "3 kernels each, its rmsnorm_bwd calls 2); operands the flash "
+            f"backward copied for TMA: {out['bwd_tma_copies']}")
 
         step = make_train_step(model, loop.opt_cfg)
         dc = DataConfig(vocab=model.cfg.vocab, seq_len=TRAIN_S,
@@ -5097,18 +5216,61 @@ def kernel_times(torch, np) -> dict:
     canonical codes that the device level 2 of a motifs run under
     ``cost_model="force_device"`` re-bins (its last, step 3's), the refine
     at the distinct table that level 2 refines, and the refine of the
-    seeded codes of every nv from 2 to 8, and the expansion at the chunk
-    and at the wide synthetic shape. At each, exact against the plain
-    version, then timed."""
+    seeded codes of every nv from 2 to 8, the expansion at the chunk
+    and at the wide synthetic shape, the halo gather at phase 3's
+    neighbour and adjacency tiles, and the bf16 flash backward at
+    stablelm-1.6b's training shape (13a's first). At each, exact against
+    the plain version (the flash backward: two calls bit for bit), then
+    timed."""
     from repro_torch.core import RunConfig, aggregation, graph as G, run
     from repro_torch.core.apps import MotifsApp
-    from repro_torch.kernels import aggregate, build, canonical_refine
+    from repro_torch.kernels import aggregate, build, canonical_refine, gather
     from repro_torch.kernels import radix_bin as R
     ops = importlib.import_module(
         "repro_torch.kernels.canonical_check.canonical_check")
+    fa = importlib.import_module(
+        "repro_torch.kernels.flash_attention.flash_attention")
 
     build.library()
     g = G.mico_like(0.1)
+    out = {"card": torch.cuda.get_device_name(0),
+           "nvidia_smi": nvidia_smi_line(), "gather": {}}
+    pg = G.to_partitioned(g, PARTS)
+    fi = first_halo(torch, np, pg, g)["fi"]
+    for name, table, fill in (
+            ("nbr", pg.nbr_sh.reshape(-1, pg.max_degree), -1),
+            ("adj", pg.adj_sh.reshape(-1, pg.adj_sh.shape[2]), 0)):
+        err = max_abs_err(torch, (gather.gather_rows_cuda(table, fi, fill),),
+                          (gather.gather_rows_ref(table, fi, fill),))
+        need(err == 0, f"gather_rows differs at the {name} tile ({err})")
+        timed = time_call(torch, lambda: gather.gather_rows_cuda(
+            table, fi, fill), device=True)
+        out["gather"][name] = {k: timed[k] for k in (
+            "ms", "host_ms", "device_ms", "host_bound")}
+    del pg, fi, table
+    label, b, sq, sk, h, kv, d, causal, window, _ = TRAIN_FLASH_SHAPES[0]
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    q, dout = (torch.randn((b, sq, h, d), generator=gen, device="cuda")
+               .bfloat16() for _ in range(2))
+    k, v = (torch.randn((b, sk, kv, d), generator=gen, device="cuda")
+            .bfloat16() for _ in range(2))
+    o, lse = fa.flash_attention_cuda(q, k, v, causal, window, return_lse=True)
+    args = (q, k, v, o, dout, lse, causal, window)
+    need(all(torch.equal(x, y) for x, y in zip(
+        fa.flash_attention_bwd_cuda(*args), fa.flash_attention_bwd_cuda(*args))),
+        "the flash backward's two calls differ")
+    out["flash_bwd"] = {"at": label, "ms": time_call(
+        torch, lambda: fa.flash_attention_bwd_cuda(*args), **BWD_TIMING)["ms"]}
+    del q, k, v, o, dout, lse, args
+    # the forward at phase 6a's shape (the shared header must not move it)
+    q = torch.randn((FWD_B, FWD_S, 40, 128), generator=gen,
+                    device="cuda").bfloat16()
+    k, v = (torch.randn((FWD_B, FWD_S, 8, 128), generator=gen,
+                        device="cuda").bfloat16() for _ in range(2))
+    out["flash_fwd_ms"] = time_call(
+        torch, lambda: fa.flash_attention_cuda(q, k, v, True))["ms"]
+    del q, k, v
+    torch.cuda.empty_cache()
     dg = G.to_device(g)
     ch = first_chunk(torch, np, dg, g)
     shapes = {"chunk": (ch["qp"].codes.contiguous(), ch["child_nv"] > 0,
@@ -5131,8 +5293,7 @@ def kernel_times(torch, np) -> dict:
         run(g, MotifsApp(max_size=3), RunConfig(cost_model="force_device"))
     table = tables.last
     shapes["level2"] = (*level2_rebin_input(torch, table), table[3])
-    out = {"card": torch.cuda.get_device_name(0),
-           "nvidia_smi": nvidia_smi_line(), "expand": expand}
+    out["expand"] = expand
     for name, (codes, valid, cap) in shapes.items():
         err = max_abs_err(torch, R.radix_sort_codes(codes, valid),
                           R.radix_sort_codes_ref(codes, valid))
@@ -5193,6 +5354,14 @@ def kernel_ab(parent_src: Path) -> list:
         syn = ", ".join(f"{nv}: {ms:.4f} (device {dev[nv]})"
                         for nv, ms in res["refine_synthetic_ms"].items())
         ex = res["expand"]
+        ga = res["gather"]
+        log(f"{label}: flash_attention {res['flash_fwd_ms']:.4f} ms; "
+            f"flash_attention_bwd {res['flash_bwd']['at']} "
+            f"{res['flash_bwd']['ms']:.4f} ms; gather_rows nbr "
+            f"{ga['nbr']['ms']:.4f} ms (host {ga['nbr']['host_ms']:.4f}, "
+            f"device {ga['nbr']['device_ms']}), adj {ga['adj']['ms']:.4f} ms "
+            f"(host {ga['adj']['host_ms']:.4f}, device "
+            f"{ga['adj']['device_ms']})")
         log(f"{label}: expand_canonical chunk {ex['chunk']['ms']:.4f} ms "
             f"(device {ex['chunk']['device_ms']}), wide "
             f"{ex['wide']['ms']:.4f} ms (device {ex['wide']['device_ms']}, "
@@ -5215,7 +5384,8 @@ def main(argv=None) -> int:
     parser.add_argument("--kernel-ab", type=Path, default=None,
                         metavar="PARENT_SRC",
                         help="only time the expansion, the radix sort, "
-                        "seg_unique and the canonical refine of "
+                        "seg_unique, the canonical refine, the halo gather "
+                        "and the bf16 flash backward of "
                         "PARENT_SRC's repro_torch and of "
                         "this checkout's at the main path's shapes, in turns "
                         "(parent, change, change, parent), and print the "
@@ -5269,8 +5439,12 @@ def main(argv=None) -> int:
     log(f"[2] kernels built in {time.perf_counter() - t0:.2f} s "
         f"(nvcc {build.last_build_seconds:.2f} s)")
     for line in build.build_log().splitlines():
-        if "registers" in line or "spill" in line or "error" in line:
-            log(f"    {line.strip()}")
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:  # the kernel the next lines report on
+            log(f"    {entry.group(1)[:120]}")
+        elif ("registers" in line or "spill" in line or "error" in line
+              or "C75" in line):
+            log(f"      {line.strip()}")
 
     # ---- 3. kernels against their plain versions ---------------------------
     log("[3] kernels vs plain versions at main-path shapes (mico_like(0.1))")

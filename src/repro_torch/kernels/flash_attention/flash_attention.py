@@ -30,8 +30,10 @@ package differentiates jnp attention and has no backward kernel):
     (``csrc/flash_attention_bwd.cu``): q, k, v, out, dout, lse -> dq
     (B, Sq, H, D), dk and dv (B, Sk, KV, D) summed over each KV head's
     query heads, the same masks, D and types as the forward, P recomputed
-    in f32, no atomics. Its plain version for a CPU tensor, the kernels for
-    a CUDA tensor.
+    from the lse, no atomics. bf16 runs on the tensor cores (wgmma, TMA),
+    rounds P to bf16 for dV's product and gives dS to dK's and dQ's as two
+    bf16 terms; f32 runs on the CUDA cores. Its plain version for a CPU
+    tensor, the kernels for a CUDA tensor.
   * :func:`flash_attention_bwd_ref` — its plain version, from the formulas.
   * :class:`FlashAttentionFn` — the ``torch.autograd.Function`` whose two
     directions are the two kernels (``ops.flash_attention`` goes through it
@@ -94,10 +96,10 @@ def flash_attention_lse_ref(q: torch.Tensor, k: torch.Tensor,
 def flash_attention_bwd_ref(q, k, v, out, dout, lse, causal: bool = True,
                             window: int = 0):
     """Plain version of the backward, from the formulas, in f32: P =
-    exp(S scale - lse) recomputed, delta = rowsum(dO o O), dS = P (dO V^T -
-    delta); dV = P^T dO, dK = dS^T Q scale, dQ = dS K scale, dK and dV
-    summed over each KV head's query heads. Returns (dq, dk, dv) in q's
-    type."""
+    exp(S scale - lse) recomputed, dP = dO V^T, delta = rowsum(P o dP) (the
+    softmax's own row sum: ``out`` is not read), dS = P (dP - delta); dV =
+    P^T dO, dK = dS^T Q scale, dQ = dS K scale, dK and dV summed over each
+    KV head's query heads. Returns (dq, dk, dv) in q's type."""
     b, sq, h, d = q.shape
     sk, kv = k.shape[1], k.shape[2]
     g = h // kv
@@ -111,9 +113,8 @@ def flash_attention_bwd_ref(q, k, v, out, dout, lse, causal: bool = True,
     keep = torch.isfinite(row_lse) if mask is None else mask & torch.isfinite(
         row_lse)
     p = torch.where(keep, p, 0.0)
-    delta = (do * out.float().reshape(b, sq, kv, g, d)).sum(-1)
     dp = torch.einsum("bqhgd,bkhd->bhgqk", do, vf)
-    ds = p * (dp - delta.permute(0, 2, 3, 1)[..., None])
+    ds = p * (dp - (p * dp).sum(-1, keepdim=True))
     dv = torch.einsum("bhgqk,bqhgd->bkhd", p, do)
     dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, qf) * scale
     dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, kf).reshape(b, sq, h, d) * scale
@@ -211,13 +212,30 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return (out, lse) if return_lse else out
 
 
+#: bf16 operands of the backward that TMA could not read where they lay
+#: and that :func:`flash_attention_bwd_cuda` copied first (autograd's
+#: ``dout`` may be such a view)
+BWD_COPIES = {"flash_attention_bwd": 0}
+
+
+def _tma_operand(t: torch.Tensor) -> torch.Tensor:
+    """``t`` where TMA can read it, else a contiguous copy (counted)."""
+    if tma_readable(t):
+        return t
+    BWD_COPIES["flash_attention_bwd"] += 1
+    return t.clone(memory_format=torch.contiguous_format)
+
+
 def flash_attention_bwd_cuda(q, k, v, out, dout, lse, causal: bool = True,
                              window: int = 0):
     """The gradient of :func:`flash_attention_cuda` at (q, k, v): ``out``
     its output, ``dout`` the output's gradient (both (B, Sq, H, D) in q's
     type), ``lse`` its (B, H, Sq) f32 log-sum-exp -> (dq, dk, dv), fresh
-    contiguous tensors in q's type. Read at their strides (a last
-    dimension that is not contiguous is copied first)."""
+    contiguous tensors in q's type. Read at their strides: a bf16 q, k, v or
+    dout that TMA cannot read (:func:`tma_readable`) is copied first and
+    counted in :data:`BWD_COPIES`; otherwise only a last dimension that is
+    not contiguous is copied. The f32 route takes delta = dO . out, the bf16
+    route the softmax's own row sum of P o dP (``out`` unread)."""
     if not on_cuda(q):
         return flash_attention_bwd_ref(q, k, v, out, dout, lse, causal,
                                        window)
@@ -233,8 +251,11 @@ def flash_attention_bwd_cuda(q, k, v, out, dout, lse, causal: bool = True,
             or lse.device != q.device):
         raise TypeError(f"lse: expected ({b}, {h}, {sq}) f32 on {q.device}, "
                         f"got {tuple(lse.shape)} {lse.dtype} on {lse.device}")
-    q, k, v, out, dout = (t if t.stride(-1) == 1 else t.contiguous()
-                          for t in (q, k, v, out, dout))
+    if q.dtype == torch.bfloat16:
+        q, k, v, dout = (_tma_operand(t) for t in (q, k, v, dout))
+    else:
+        q, k, v, out, dout = (t if t.stride(-1) == 1 else t.contiguous()
+                              for t in (q, k, v, out, dout))
     lse = lse.contiguous()
     if min(b, sq, sk, h) == 0:
         return (torch.zeros((b, sq, h, d), dtype=q.dtype, device=q.device),

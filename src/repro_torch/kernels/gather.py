@@ -43,34 +43,45 @@ def gather_rows_ref(table: torch.Tensor, rows: torch.Tensor, fill: int):
     return out.masked_fill(~ok[:, None], fill)
 
 
+#: the C entry ``repro_gather_rows``, bound at the first launch
+_kernel = None
+
+
+def _bind():
+    global _kernel
+    _kernel = build.library().repro_gather_rows
+    return _kernel
+
+
 def gather_rows_cuda(table: torch.Tensor, rows: torch.Tensor, fill: int):
     """table (N, R) int32; rows (U,) int32 -> (U, R) int32: ``table[rows[i]]``
     where ``0 <= rows[i] < N``, else a row of ``fill``. Any ``U`` is
-    accepted, including 0."""
+    accepted, including 0. Launches through :func:`build.launch` (the raw
+    current stream, a device guard only off the current device): the
+    chunk program calls it twice a chunk, so its host time counts."""
     if not on_cuda(table):
         return gather_rows_ref(table, rows, fill)
-    dev = table.device
+    dev = table.get_device()
     if table.dtype != torch.int32 or table.dim() != 2:
         raise TypeError(f"table: expected 2-d int32, got {table.dim()}-d "
                         f"{table.dtype}")
-    if rows.dtype != torch.int32 or rows.dim() != 1 or rows.device != dev:
-        raise TypeError(f"rows: expected 1-d int32 on {dev}, got "
+    if rows.dtype != torch.int32 or rows.dim() != 1 or rows.get_device() != dev:
+        raise TypeError(f"rows: expected 1-d int32 on {table.device}, got "
                         f"{rows.dim()}-d {rows.dtype} on {rows.device}")
     n, r = table.shape
     u = rows.shape[0]
-    if n > INT32_MAX or not -2**31 <= int(fill) <= INT32_MAX:
+    fill = int(fill)
+    if n > INT32_MAX or not -2**31 <= fill <= INT32_MAX:
         raise ValueError(f"table rows {n} / fill {fill} exceed int32")
-    table, rows = table.contiguous(), rows.contiguous()
-    out = torch.empty((u, r), dtype=torch.int32, device=dev)
+    if not table.is_contiguous():
+        table = table.contiguous()
+    if not rows.is_contiguous():
+        rows = rows.contiguous()
+    out = torch.empty((u, r), dtype=torch.int32, device=table.device)
     if u == 0 or r == 0:
         return out.fill_(fill)
-    lib = build.library()
-    with torch.cuda.device(dev):
-        build.count_launch("gather_rows")
-        build.check(lib.repro_gather_rows(
-            table.data_ptr(), n, r, rows.data_ptr(), u, int(fill),
-            out.data_ptr(), build.stream_of(table),
-        ), "gather_rows")
+    build.launch("gather_rows", _kernel or _bind(), dev, table.data_ptr(), n,
+                 r, rows.data_ptr(), u, fill, out.data_ptr())
     return out
 
 

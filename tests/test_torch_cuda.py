@@ -9,6 +9,7 @@ port is installed:
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 """
 import dataclasses
+import importlib
 import math
 import sys
 from pathlib import Path
@@ -791,8 +792,10 @@ def test_stream_compact_matches_plain_version(cuda_device, size, mask):
 def _flash_inputs(g, dev, dtype, b, sq, sk, h, kv, d, layout):
     """q (B, Sq, H, D), k and v (B, Sk, KV, D): separate tensors
     ("contiguous"), views of one fused (B, S, H + 2 KV, D) projection
-    ("fused"), or views whose base lies one element past a 16-byte
-    boundary ("unaligned")."""
+    ("fused"), views whose base lies one element past a 16-byte boundary
+    ("unaligned"), or separate tensors whose q and k rows share a vector
+    per head twice their own scale ("offset", as trained activations do:
+    the keys' common part cancels from dq only in exact arithmetic)."""
     def draw(*shape):
         return torch.randn(shape, generator=g, device=dev).to(dtype)
 
@@ -802,6 +805,10 @@ def _flash_inputs(g, dev, dtype, b, sq, sk, h, kv, d, layout):
     if layout == "unaligned":
         return tuple(draw(math.prod(shape) + 1)[1:].view(shape) for shape in (
             (b, sq, h, d), (b, sk, kv, d), (b, sk, kv, d)))
+    if layout == "offset":
+        q, k = (draw(b, s, n, d).float() + 2 * draw(b, 1, n, d).float()
+                for s, n in ((sq, h), (sk, kv)))
+        return q.to(dtype), k.to(dtype), draw(b, sk, kv, d)
     return draw(b, sq, h, d), draw(b, sk, kv, d), draw(b, sk, kv, d)
 
 
@@ -1101,6 +1108,7 @@ FLASH_BWD_CASES = [
     (2, 100, 333, 4, 4, 64, False, 0, "contiguous"),  # cross-attention
     (1, 150, 150, 4, 4, 192, True, 0, "contiguous"),  # MLA's D = 192
     (1, 96, 64, 2, 1, 256, True, 0, "contiguous"),    # D 256, Sq > Sk
+    (1, 200, 64, 4, 4, 64, True, 32, "contiguous"),   # rows without a key
 ]
 
 
@@ -1152,6 +1160,101 @@ def test_flash_bwd_kernel_matches_plain_version(cuda_device, b, sq, sk, h,
     assert build.LAUNCHES["flash_attention_bwd"] == bwd + 1
     for name, leaf, a in zip(("dq", "dk", "dv"), leaves, got):
         assert torch.equal(leaf.grad, a), name
+
+
+#: the bf16 backward's tensor-core kernels: (b, sq, sk, h, kv, d, causal,
+#: window, layout), covering D padded to 64, 128 and 256, GQA groups 1, 3
+#: and 5, the causal, window and full masks, Sq != Sk, ragged tiles and the
+#: fused projection's strided views
+FLASH_TC_CASES = [
+    (2, 256, 256, 4, 4, 64, True, 0, "contiguous"),   # DP 64, group 1
+    (1, 200, 200, 6, 2, 64, True, 0, "fused"),        # group 3, ragged, views
+    (1, 333, 333, 10, 2, 128, True, 0, "contiguous"), # DP 128, group 5
+    (2, 300, 300, 4, 4, 80, True, 100, "contiguous"), # window, D 80
+    (2, 100, 333, 6, 2, 64, False, 0, "contiguous"),  # full, Sq < Sk
+    (1, 333, 100, 4, 4, 64, True, 0, "contiguous"),   # causal, Sq > Sk
+    (2, 130, 130, 8, 2, 128, True, 0, "fused"),       # DP 128, views
+    (1, 150, 150, 5, 1, 192, True, 0, "contiguous"),  # DP 256, group 5
+    (1, 96, 64, 3, 1, 256, True, 48, "contiguous"),   # DP 256, window
+    (1, 1, 77, 4, 4, 64, False, 0, "contiguous"),     # one query row
+    (2, 100, 100, 4, 2, 64, True, 0, "unaligned"),    # copied for TMA
+    (2, 256, 256, 4, 4, 64, True, 0, "offset"),       # common q, k parts
+    (1, 200, 200, 6, 2, 128, True, 0, "offset"),
+    (1, 150, 150, 4, 2, 192, True, 0, "offset"),
+]
+
+
+@pytest.mark.parametrize("b,sq,sk,h,kv,d,causal,window,layout",
+                         FLASH_TC_CASES)
+def test_flash_bwd_tensor_cores_hold_the_autograd_rule(
+        cuda_device, b, sq, sk, h, kv, d, causal, window, layout):
+    """bf16 backward (wgmma + TMA) against autograd through the plain f32
+    forward on f32 copies of the same inputs: each output's largest error
+    at most twice that of autograd through the plain bf16 forward plus one
+    bf16 step of its largest value (chip_smoke.py 13a's rule), and within
+    1e-2 of that value against the plain backward; two calls give the same
+    bits, one launch counted each, and a view that TMA cannot read is
+    copied and counted."""
+    fa = importlib.import_module(
+        "repro_torch.kernels.flash_attention.flash_attention")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=cuda_device).manual_seed(17)
+    dtype = torch.bfloat16
+    q, k, v = _flash_inputs(g, cuda_device, dtype, b, sq, sk, h, kv, d,
+                            layout)
+    out, lse = flash_attention_cuda(q, k, v, causal, window, return_lse=True)
+    dout = torch.randn(out.shape, generator=g, device=cuda_device).to(dtype)
+    launches = build.LAUNCHES["flash_attention_bwd"]
+    copies = fa.BWD_COPIES["flash_attention_bwd"]
+    got = fa.flash_attention_bwd_cuda(q, k, v, out, dout, lse, causal, window)
+    again = fa.flash_attention_bwd_cuda(q, k, v, out, dout, lse, causal,
+                                        window)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["flash_attention_bwd"] == launches + 2
+    unread = sum(not tma_readable(t) for t in (q, k, v, dout))
+    assert unread == (3 if layout == "unaligned" else 0)
+    assert fa.BWD_COPIES["flash_attention_bwd"] == copies + 2 * unread
+
+    def grads(dt):
+        leaves = [t.detach().to(dt).requires_grad_() for t in (q, k, v)]
+        o = fa.flash_attention_ref(*leaves, causal, window)
+        return torch.autograd.grad(o, leaves, dout.to(dt))
+
+    plain, ref = grads(dtype), grads(torch.float32)
+    want = fa.flash_attention_bwd_ref(q, k, v, out, dout, lse, causal, window)
+    for name, a, a2, p, r, w in zip(("dq", "dk", "dv"), got, again, plain,
+                                    ref, want):
+        assert a.shape == r.shape and a.dtype == dtype, name
+        assert torch.equal(a, a2), name
+        top = r.abs().max().item()
+        err = (a.float() - r).abs().max().item()
+        perr = (p.float() - r).abs().max().item()
+        assert err <= 2 * perr + 2 ** -8 * top, (name, err, perr, top)
+        werr = (a.float() - w.float()).abs().max().item()
+        assert werr <= 1e-2 * w.float().abs().max().item(), (name, werr)
+
+
+def test_gather_launches_on_the_current_stream(cuda_device):
+    """gather_rows_cuda called under a non-default stream: exact against
+    its plain version (ids past either end give fill rows) once that
+    stream is synchronised, one launch counted; an empty row list launches
+    nothing."""
+    rng = np.random.default_rng(5)
+    table = torch.from_numpy(rng.integers(-2**31, 2**31 - 1, (1000, 2945),
+                                          dtype=np.int32)).to(cuda_device)
+    rows = torch.from_numpy(rng.integers(-5, 1005, 700).astype(np.int32)).to(
+        cuda_device)
+    want = gather.gather_rows_ref(table, rows, -1)
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream(cuda_device)
+    before = build.LAUNCHES["gather_rows"]
+    with torch.cuda.stream(side):
+        got = gather.gather_rows_cuda(table, rows, -1)
+        empty = gather.gather_rows_cuda(table, rows[:0], 7)
+    side.synchronize()
+    assert build.LAUNCHES["gather_rows"] == before + 1
+    assert torch.equal(got, want)
+    assert empty.shape == (0, 2945) and empty.dtype == torch.int32
 
 
 def test_train_step_on_the_card_matches_cpu(cuda_device):

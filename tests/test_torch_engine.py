@@ -4,15 +4,15 @@ embeddings and the per-step ``StepStats`` counters must be identical
 ``tests/test_apps_vs_oracle.py`` and a labeled MiCo-shaped graph. The JAX
 side pins ``cost_model="off"`` (its jnp routes on the CPU); the port runs
 on the CPU with the kernel knobs on, so every kernel wrapper takes its
-plain version. The pipeline modes are in ``test_torch_pipeline.py``."""
+plain version. The pipeline modes are in ``test_torch_pipeline.py``, what
+``run`` refuses in ``test_torch_engine_guards.py``."""
 import numpy as np
 import pytest
-import torch
 
 from repro.core import EngineConfig, graph as JG
 from repro.core.apps import CliquesApp as JCliques, MotifsApp as JMotifs
 from repro.core.apps.cliques import maximal_cliques as jmaximal
-from repro_torch.core import FaultPlan, RunConfig, graph as TG, run
+from repro_torch.core import RunConfig, graph as TG, run
 from repro_torch.core.apps import CliquesApp, MotifsApp
 from repro_torch.core.apps.cliques import maximal_cliques
 from torch_parity import KERNELS_ON, assert_same_run, graph_pair, jax_run
@@ -66,40 +66,6 @@ def test_labeled_mico_motifs_cross_agg_qcap():
     assert tres.stats.steps[-1].n_quick_patterns > 4096
 
 
-def test_entry_points_need_a_card_unless_cpu_is_asked(monkeypatch):
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        run(TG.triangle_plus_tail(), MotifsApp(max_size=3))
-    res = run(TG.triangle_plus_tail(), MotifsApp(max_size=3), device="cpu")
-    assert sum(res.patterns.values()) > 0
-
-
-@pytest.mark.parametrize("knob", [
-    dict(checkpoint_dir="ckpt"), dict(log_every=1),
-    dict(trace=True), dict(faults=()),
-])
-def test_unported_paths_raise(knob, tmp_path):
-    """The knobs whose paths were not ported raised ``NotImplementedError``;
-    checkpoints, the progress log, tracing and fault plans are ported now,
-    so each runs and gives the default run's patterns."""
-    if "checkpoint_dir" in knob:
-        knob = dict(checkpoint_dir=str(tmp_path / knob["checkpoint_dir"]))
-    if "faults" in knob:
-        knob = dict(faults=FaultPlan(knob["faults"]))
-    g = TG.triangle_plus_tail()
-    res = run(g, MotifsApp(max_size=3), RunConfig(**knob), device="cpu")
-    ref = run(g, MotifsApp(max_size=3), device="cpu")
-    assert res.patterns == ref.patterns
-
-
-def test_unknown_store_kind_raises():
-    """``make_store`` takes "raw" and "odag", as the reference's does: a
-    spill store comes from ``device_budget_bytes``, not from ``store``."""
-    with pytest.raises(ValueError, match="spill"):
-        run(TG.triangle_plus_tail(), MotifsApp(max_size=3),
-            RunConfig(store="spill"), device="cpu")
-
-
 @pytest.mark.parametrize("knob", [
     dict(canonical_placement="device"), dict(canonical_placement="host_async"),
     dict(aggregate_bin="radix"), dict(cost_model="force_device"),
@@ -114,4 +80,3 @@ def test_level2_placements_and_radix_bin_run(knob):
     want = run(g, MotifsApp(max_size=3), device="cpu").patterns
     res = run(g, MotifsApp(max_size=3), RunConfig(**knob), device="cpu")
     assert res.patterns == want
-

@@ -4,7 +4,8 @@ package's, on graphs and inputs made from one seed with numpy. Outputs are
 integers and booleans: tolerance 0. The JAX side runs its Pallas kernels in
 interpret mode where one is compared; the port runs its kernel routes,
 whose plain versions take CPU tensors, and its plain routes. Whole runs
-under ``graph_partition=4`` are in ``test_torch_partition_runs.py``."""
+under ``graph_partition=4`` are in ``test_torch_partition_runs.py``, the
+shard bounds in ``test_torch_partition_bounds.py``."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -34,16 +35,6 @@ def _graphs():
 
 def _t(a):
     return torch.from_numpy(np.ascontiguousarray(a))
-
-
-@pytest.mark.parametrize("w", [1, 2, 3, 4, 8])
-@pytest.mark.parametrize("balance", ["vertex", "degree"])
-def test_partition_bounds_match_reference(w, balance):
-    for jg, tg in _graphs():
-        want = np.asarray(JG.partition_bounds(jg, w, balance))
-        got = TG.partition_bounds(tg, w, balance)
-        assert got.dtype == want.dtype
-        np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.parametrize("w", [1, 2, 4])

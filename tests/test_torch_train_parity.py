@@ -159,3 +159,53 @@ def test_flash_bwd_ref_matches_jax_grad(causal):
         w = np.asarray(w)
         assert g.shape == w.shape
         assert np.abs(g.numpy() - w).max() <= 1e-5 * np.abs(w).max()
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("offset", [0.0, 4.0])
+def test_flash_bwd_ref_on_rounded_out_holds_the_rule(offset, causal):
+    """``flash_attention_bwd_ref`` on bf16 inputs and the forward's rounded
+    output, against ``jax.vjp`` of the reference's ``attention_ref`` in f32
+    on the same values: each gradient's largest error at most twice that
+    of autograd through the plain bf16 forward plus one bf16 step of its
+    largest value (chip_smoke.py 13a's rule). q and k rows share a vector a
+    head ``offset`` times their own scale, as trained activations do; dS
+    sums to zero along each query row, so the keys' common part cancels
+    from dq in exact arithmetic, and a delta taken as dO . out (the rounded
+    output) instead of rowsum(P o dP) misses the rule at offset 4."""
+    rng = np.random.default_rng(3)
+    b, s, h, kv, d = 1, 256, 4, 2, 64
+    q = (rng.standard_normal((b, s, h, d))
+         + offset * rng.standard_normal((b, 1, h, d)))
+    k = (rng.standard_normal((b, s, kv, d))
+         + offset * rng.standard_normal((b, 1, kv, d)))
+    v = rng.standard_normal((b, s, kv, d))
+    dout = rng.standard_normal((b, s, h, d))
+    tq, tk, tv, tdo = (torch.from_numpy(t.astype(np.float32)).bfloat16()
+                       for t in (q, k, v, dout))
+
+    def ref(q, k, v):
+        g = h // kv
+        bh = lambda t: jnp.transpose(t, (0, 2, 1, 3)).reshape(
+            b * h, t.shape[1], d)
+        o = attention_ref(bh(q), bh(jnp.repeat(k, g, axis=2)),
+                          bh(jnp.repeat(v, g, axis=2)), causal=causal)
+        return jnp.transpose(o.reshape(b, h, s, d), (0, 2, 1, 3))
+
+    _, vjp = jax.vjp(ref, *(jnp.asarray(t.float().numpy())
+                           for t in (tq, tk, tv)))
+    want = vjp(jnp.asarray(tdo.float().numpy()))
+    leaves = [t.detach().requires_grad_() for t in (tq, tk, tv)]
+    plain = torch.autograd.grad(flash_attention_ref(*leaves, causal), leaves,
+                                tdo)
+    out = flash_attention_ref(tq, tk, tv, causal)
+    lse = flash_attention_lse_ref(tq, tk, causal)
+    got = flash_attention_bwd_ref(tq, tk, tv, out, tdo, lse, causal)
+    for name, g, p, w in zip(("dq", "dk", "dv"), got, plain, want):
+        w = np.asarray(w)
+        top = np.abs(w).max()
+        err = np.abs(g.float().numpy() - w).max()
+        perr = np.abs(p.float().numpy() - w).max()
+        assert g.dtype == torch.bfloat16, name
+        assert err <= 2 * perr + 2 ** -8 * top, (name, err, perr, top)
+
