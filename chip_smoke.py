@@ -265,7 +265,28 @@ Phases, in order; any failure exits non-zero and prints no result:
         step, ms a step, tokens/s, the peak; one step profiled, one under
         sync debug mode "error"; a fresh model resumed from the step-5
         checkpoint gives steps 5-9's losses bit for bit;
-     d. ``examples.train_lm --full`` (smollm-135m, 8 x 128): the loss falls.
+     d. ``examples.train_lm --full`` (smollm-135m, 8 x 128): the loss falls;
+  14. the dry run (``repro_torch.launch.dryrun``, ``repro_torch.roofline``):
+     a. one cell a family on the fake 16 x 16 mesh at published widths and
+        full depth (qwen2.5-14b train_4k, deepseek-v2-236b prefill_32k,
+        zamba2-2.7b long_500k, xlstm-1.3b decode_32k, whisper-base
+        decode_32k, internvl2-26b prefill_32k) and the mining cell on both
+        meshes, each counted in a process of its own, all at once: status
+        ``ok`` (or ``error`` naming the operation DTensor cannot shard),
+        the seconds, the bottleneck and the three terms;
+     b. the fixed-shape mining step (``core.distributed.
+        mining_step_for_dryrun``) for real: four virtual workers on the
+        card over a seeded graph of 65,536 vertices (maximum degree at most
+        64) and a frontier of 2^20 full rows of 5 vertices, a dictionary
+        of 512 quick codes; ``canonical_check`` launched once a worker;
+        children, counts and the psum'd pattern counts equal, bit for bit,
+        to a one-worker mesh run on each slice, to the plain route
+        (``use_pallas=False``, no launch) on the card over the whole
+        frontier, and, on the first 8,192 rows, to the four workers on the
+        CPU's plain route; ms a step and the peak;
+     c. the roofline held against the card: the dry run's counter on one
+        device for 13c's train step and 6c's forward, whose measured times
+        must be at least the bound (the largest term); measured / bound.
 
 Phases 4, 5, 7a-b and 8a-b pass ``cost_model="off"``: under ``"auto"`` a
 graph of 2,048 edges or more is calibrated, and the card and the CPU may
@@ -5209,6 +5230,251 @@ def train_phase(torch, build) -> tuple:
     return totals, rows, out
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the dry run
+# ---------------------------------------------------------------------------
+
+#: 14a: one cell a family, on the single (16 x 16) mesh
+DRYRUN_CELLS = (("qwen2.5-14b", "train_4k"),
+                ("deepseek-v2-236b", "prefill_32k"),
+                ("zamba2-2.7b", "long_500k"),
+                ("xlstm-1.3b", "decode_32k"),
+                ("whisper-base", "decode_32k"),
+                ("internvl2-26b", "prefill_32k"))
+#: a 14a process's time limit, seconds
+DRYRUN_TIMEOUT = 600
+#: 14b: the mining step's graph (vertices, edges), frontier rows, k, the
+#: quick-code dictionary and the workers
+MINING_N, MINING_M = 65536, 65536 * 16
+MINING_ROWS, MINING_K, MINING_Q, MINING_W = 1 << 20, 5, 512, 4
+#: 14b: the rows the CPU's plain route also takes (about 0.8 s a thousand
+#: rows on the CPU: the whole frontier would take ~15 min; the card's plain
+#: route takes the whole frontier), and the rows whose children give the
+#: dictionary
+MINING_CPU_ROWS, MINING_DICT_ROWS = 8192, 2048
+
+
+def dryrun_cells() -> dict:
+    """14a: each cell of ``DRYRUN_CELLS`` and the mining cell on both
+    meshes counted by ``python -m repro_torch.launch.dryrun`` in a process
+    of its own, all at once (``dryrun.count_in_processes``; the counting
+    runs on fake tensors: no card). Returns the cells' records by key."""
+    from repro_torch.launch import dryrun
+
+    env = dict(os.environ, PYTHONPATH=str(SRC), CUDA_VISIBLE_DEVICES="")
+    jobs = [["--arch", a, "--shape", sh] for a, sh in DRYRUN_CELLS]
+    jobs.append(["--mining", "--both-meshes"])
+    with tempfile.TemporaryDirectory(prefix="repro_dryrun_") as tmp:
+        path = Path(tmp) / "cells.json"
+        done = dryrun.count_in_processes(jobs, str(path), len(jobs), env=env,
+                                         timeout=DRYRUN_TIMEOUT)
+        for flags, (rc, tail) in zip(jobs, done):
+            need(rc == 0, f"dry run {' '.join(flags)} exited {rc}: {tail}")
+        return json.loads(path.read_text())
+
+
+def mining_inputs(np, G):
+    """14b's inputs: the graph, a frontier of full rows (rows that stopped
+    growing are dropped) and the dictionary: the most frequent quick codes
+    of the children of one plain step on the frontier's first
+    ``MINING_DICT_ROWS`` rows (on the CPU)."""
+    import torch
+
+    from repro_torch.core import pattern
+    from repro_torch.core.distributed import mining_worker, random_frontier
+
+    g = G.random_labeled(MINING_N, MINING_M, n_labels=8, seed=5,
+                         power_law=False)
+    deg = np.bincount(g.edges.ravel(), minlength=g.n)
+    need(deg.max() <= 64, f"14b graph's maximum degree {deg.max()} > 64")
+    members, n_valid = random_frontier(g, MINING_ROWS * 5 // 4, MINING_K,
+                                       seed=6)
+    full = n_valid == MINING_K
+    need(full.sum() >= MINING_ROWS, f"14b: {full.sum()} full rows")
+    members = members[full][:MINING_ROWS]
+    per = MINING_DICT_ROWS
+    dg = G.to_device(g, "cpu")
+    m = torch.from_numpy(members[:per])
+    nv = torch.full((per,), MINING_K, dtype=torch.int32)
+    zero = torch.zeros((MINING_Q, 3), dtype=torch.int64)
+    children, count, _ = mining_worker(dg, m, nv, zero, use_pallas=False)
+    child_nv = torch.where(torch.arange(per) < count, MINING_K + 1,
+                           0).to(torch.int32)
+    codes = pattern.quick_pattern_vertex(dg, children, child_nv).codes
+    uniq, freq = np.unique(codes[child_nv > 0].numpy(), axis=0,
+                           return_counts=True)
+    quick = uniq[np.argsort(-freq, kind="stable")][:MINING_Q]
+    quick = np.concatenate([quick, np.full((MINING_Q - len(quick), 3), -7)])
+    return g, members, int(deg.max()), quick.astype(np.int64)
+
+
+def mining_step_check(torch, np, G, build) -> tuple:
+    """14b (see the module's docstring). Returns the counted launches and
+    the record."""
+    from repro_torch.core.distributed import make_mesh, mining_step_for_dryrun
+
+    t0 = time.perf_counter()
+    g, members, max_deg, quick = mining_inputs(np, G)
+    per = MINING_ROWS // MINING_W
+    out = {"inputs_s": time.perf_counter() - t0, "max_degree": max_deg,
+           "rows": MINING_ROWS, "k": MINING_K, "workers": MINING_W}
+
+    def step(device, w, rows, use_pallas=None):
+        """The step over ``w`` workers on ``device`` for ``rows``
+        (``use_pallas=False``: the plain route, on the card too)."""
+        mesh = make_mesh((w,), ("data",), device=device)
+        fn = mining_step_for_dryrun(mesh, axes=("data",),
+                                    use_pallas=use_pallas)
+        dg = G.to_device(g, device)
+        m = torch.from_numpy(rows).to(dg.device).reshape(w, -1, MINING_K)
+        nv = torch.full(m.shape[:2], MINING_K, dtype=torch.int32,
+                        device=dg.device)
+        q = torch.from_numpy(quick).to(dg.device)
+        return lambda: fn(dg, m, nv, q)
+
+    card4 = step(None, MINING_W, members)
+    torch.cuda.synchronize()
+    build.reset_launches()
+    got = card4()
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in build.LAUNCHES.items() if v}
+    need(launches == {"canonical_check": MINING_W},
+         f"14b launches {launches}, expected canonical_check x {MINING_W}")
+    got = [t.cpu().numpy() for t in got]
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        card4()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    out.update(ms_per_step=statistics.median(walls) * 1e3,
+               peak_bytes=torch.cuda.max_memory_allocated(),
+               launches=launches)
+    children, count, counts = got
+    need((counts == counts[0]).all() and counts[0].sum() > 0,
+         "14b: psum'd counts differ between workers or are all zero")
+    total = np.zeros(MINING_Q, dtype=np.int64)
+    for w in range(MINING_W):
+        c1, n1, t1 = (t.cpu().numpy() for t in step(
+            None, 1, members[w * per:(w + 1) * per])())
+        need((c1[0] == children[w]).all() and n1[0] == count[w],
+             f"14b: worker {w} differs from a one-worker step on its slice")
+        total += t1[0]
+    need((total == counts[0]).all(), "14b: psum'd counts differ from the "
+         "one-worker steps' sum")
+    # the plain route over the whole frontier, on the card
+    plain4 = step(None, MINING_W, members, use_pallas=False)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    plain = plain4()
+    torch.cuda.synchronize()
+    out.update(plain_ms=(time.perf_counter() - t0) * 1e3,
+               plain_peak_bytes=torch.cuda.max_memory_allocated())
+    plain_launches = {k: v for k, v in build.LAUNCHES.items() if v}
+    need(not plain_launches, f"14b: the plain route launched {plain_launches}")
+    for a, b, name in zip(got, plain, ("children", "count", "counts")):
+        b = b.cpu().numpy()
+        need(a.shape == b.shape and (a == b).all(), f"14b: the kernel's "
+             f"{name} differ from the plain route's on the whole frontier")
+    del plain, plain4
+    torch.cuda.empty_cache()
+    few = members[:MINING_CPU_ROWS]
+    card = [t.cpu().numpy() for t in step(None, MINING_W, few)()]
+    t0 = time.perf_counter()
+    cpu = [t.numpy() for t in step("cpu", MINING_W, few)()]
+    out["cpu_s"] = time.perf_counter() - t0
+    for a, b, name in zip(card, cpu, ("children", "count", "counts")):
+        need(a.shape == b.shape and (a == b).all(),
+             f"14b: the card's {name} differ from the CPU's plain route")
+    out.update(children_kept=[int(c) for c in count],
+               patterns_counted=int(counts[0].sum()))
+    log(f"  14b: {MINING_W} workers x {per} rows (k {MINING_K}, maximum "
+        f"degree {max_deg}): {out['ms_per_step']:.1f} ms a step, peak "
+        f"{out['peak_bytes'] / 2**30:.2f} GiB, launches {launches}; "
+        f"children {out['children_kept']}, {out['patterns_counted']} "
+        f"matched; equal to 4 one-worker steps and, on the whole frontier, "
+        f"to the plain route on the card ({out['plain_ms']:.1f} ms, peak "
+        f"{out['plain_peak_bytes'] / 2**30:.2f} GiB); on the first "
+        f"{MINING_CPU_ROWS} rows equal to the CPU's plain route "
+        f"({out['cpu_s']:.1f} s)")
+    return launches, out
+
+
+def roofline_check(forward_s, train_step_ms) -> dict:
+    """14c: the dry run's counter on one device for 13c's train step and
+    6c's forward: the measured time is at least the bound."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch import dryrun
+    from repro_torch.roofline import analysis
+
+    out = {}
+    for label, arch, kind, b, s_, measured in (
+            ("13c train step", TRAIN_ARCH, "train", TRAIN_B, TRAIN_S,
+             train_step_ms / 1e3),
+            ("6c forward", MODEL, "prefill", FWD_B, FWD_S, min(forward_s))):
+        t0 = time.perf_counter()
+        counter, _ = dryrun.count_program(get_arch(arch),
+                                          ShapeConfig(label, s_, b, kind),
+                                          None)
+        roof = analysis.from_counts(counter, 1)
+        rec = dict(roof.to_dict(), bound_s=roof.bound_s, measured_s=measured,
+                   ratio=measured / roof.bound_s,
+                   count_s=time.perf_counter() - t0)
+        out[label] = rec
+        log(f"  14c {label} ({arch}, {b} x {s_}): measured "
+            f"{measured * 1e3:.1f} ms, bound {roof.bound_s * 1e3:.1f} ms "
+            f"({roof.bottleneck}; compute {roof.t_compute * 1e3:.1f}, memory "
+            f"{roof.t_memory * 1e3:.1f} ms), measured / bound "
+            f"{rec['ratio']:.3f}")
+        need(measured >= roof.bound_s, f"14c {label}: measured "
+             f"{measured * 1e3:.1f} ms beats its bound "
+             f"{roof.bound_s * 1e3:.1f} ms: the count is wrong")
+    return out
+
+
+def dryrun_phase(torch, np, G, build, forward_s, train_step_ms) -> tuple:
+    """Phase 14: 14a the dry run's cells, 14b the mining step on the card,
+    14c the roofline against 6c's and 13c's measured times. Returns 14b's
+    counted launches and the phase's record."""
+    t_phase = time.perf_counter()
+    out = {"total_memory": torch.cuda.get_device_properties(0).total_memory}
+    log(f"  card memory (total_memory): {out['total_memory']} B")
+    log("[14a] dry-run cells on the fake 16 x 16 mesh (one a family) and "
+        "the mining cell on both meshes")
+    t0 = time.perf_counter()
+    cells = dryrun_cells()
+    out["cells_wall_s"] = time.perf_counter() - t0
+    out["cells"] = cells
+    for key in [f"{a}|{sh}|single" for a, sh in DRYRUN_CELLS] + [
+            "mining|single", "mining|multi"]:
+        cell = cells.get(key)
+        need(cell is not None, f"14a: no record of {key}")
+        if cell["status"] != "ok":
+            need(cell["status"] == "error" and "aten." in cell["error"],
+                 f"14a {key}: {cell}")
+            log(f"  {key}: error {cell['error'][:200]}")
+            continue
+        r = cell["roofline"]
+        log(f"  {key}: ok, {cell['count_s']} s, {r['bottleneck']}; compute "
+            f"{r['t_compute_s'] * 1e3:.3f} ms, memory "
+            f"{r['t_memory_s'] * 1e3:.3f} ms, collective "
+            f"{r['t_collective_s'] * 1e3:.3f} ms; per device "
+            f"{(r['per_device_hbm'] or 0) / 1e9:.2f} GB")
+    log(f"  14a wall {out['cells_wall_s']:.1f} s")
+    log("[14b] the fixed-shape mining step on the card")
+    totals, out["mining_step"] = mining_step_check(torch, np, G, build)
+    torch.cuda.empty_cache()
+    log("[14c] the roofline against the card")
+    out["roofline"] = roofline_check(forward_s, train_step_ms)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 14: {out['seconds']:.1f} s")
+    return totals, out
+
+
 def kernel_times(torch, np) -> dict:
     """The redesigned kernels of the ``repro_torch`` on ``sys.path`` at the
     main path's shapes on ``mico_like(0.1)``: the radix sort and
@@ -5377,6 +5643,17 @@ def kernel_ab(parent_src: Path) -> list:
     return results
 
 
+def add_launches(totals, phase_totals, phase: str):
+    """Add a phase's main-path launches to ``totals`` (and return it), and
+    log them: the kernels line's ``launches`` are these sums, and a change
+    in one of them is found by its phase."""
+    for name, v in phase_totals.items():
+        totals[name] += v
+    log(f"  phase {phase} main-path launches: "
+        f"{ {k: v for k, v in phase_totals.items() if v} }")
+    return totals
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--json", type=Path, default=None,
@@ -5497,6 +5774,7 @@ def main(argv=None) -> int:
         ("cliques_partitioned", CliquesApp(max_size=4),
          RunConfig(cost_model="off", graph_partition=PARTS)),
     ])
+    totals = add_launches(dict.fromkeys(build.LAUNCHES, 0), totals, "5")
     row, extra["level2_step3"] = refine_main_table(torch, level2_table)
     rebin = level2_rebin_input(torch, level2_table)
     extra["radix_level2"] = radix_case(torch, *rebin, "level2")
@@ -5522,14 +5800,12 @@ def main(argv=None) -> int:
     build.reset_launches()
     log(f"[6c] main path: {MODEL} at full widths and depth")
     model_totals, extra["model_main_path"] = model_main_path(torch, build)
-    for name, v in model_totals.items():
-        totals[name] += v
+    add_launches(totals, model_totals, "6c")
 
     # ---- 7. frequent subgraph mining ---------------------------------------
     fsm_totals, extra["fsm"], fsm_3edges = fsm_phase(torch, np, run,
                                                      RunConfig, G, build)
-    for name, v in fsm_totals.items():
-        totals[name] += v
+    add_launches(totals, fsm_totals, "7")
 
     # ---- 8. the frontier stores ----------------------------------------------
     extra["stores_card_vs_cpu"] = store_card_vs_cpu(torch, run, RunConfig, G)
@@ -5543,47 +5819,49 @@ def main(argv=None) -> int:
     extra["fsm_depth"] = fsm_depth_runs(torch, run, RunConfig, G, build,
                                         store_totals, fewer_edges=fsm_3edges,
                                         one_wave=False)
-    for name, v in store_totals.items():
-        totals[name] += v
+    add_launches(totals, store_totals, "8")
 
     # ---- 9. the runtime's control plane --------------------------------------
     log("[9] the runtime's control plane: cost model, checkpoints, "
         "supervised recovery, tracing")
     control_totals, extra["control_plane"] = control_plane_phase(
         torch, np, G, build, motifs5, fsm_3edges)
-    for name, v in control_totals.items():
-        totals[name] += v
+    add_launches(totals, control_totals, "9")
 
     # ---- 10. the distributed backend -----------------------------------------
     log(f"[10] the shard-map backend: {PARTS} virtual workers on the card")
     shard_totals, extra["distributed"] = distributed_phase(
         torch, np, G, build, motifs5, cliques5, fsm_3edges)
     del motifs5, cliques5, fsm_3edges
-    for name, v in shard_totals.items():
-        totals[name] += v
+    add_launches(totals, shard_totals, "10")
 
     # ---- 11. the oracles, Table 1's SN and Patents graphs, the examples -----
     log("[11] the exact oracles, Table 1's SN and Patents graphs, the "
         "examples")
     oracle_totals, extra["oracles"] = oracle_phase(torch, np, run, RunConfig,
                                                    G, build)
-    for name, v in oracle_totals.items():
-        totals[name] += v
+    add_launches(totals, oracle_totals, "11")
 
     # ---- 12. the rest of the model zoo's serving path ----------------------
     log("[12] the model zoo's other families: MoE with MLA, the Mamba2 "
         "hybrid, xLSTM, Whisper, the VLM")
     zoo_totals, extra["zoo"] = zoo_phase(torch, build)
-    for name, v in zoo_totals.items():
-        totals[name] += v
+    add_launches(totals, zoo_totals, "12")
 
     # ---- 13. training ---------------------------------------------------------
     log("[13] training on the card: the loss, AdamW, the train loop and its "
         "checkpoints, both kernels in both directions")
     train_totals, rows, extra["training"] = train_phase(torch, build)
     kernels += rows
-    for name, v in train_totals.items():
-        totals[name] += v
+    add_launches(totals, train_totals, "13")
+
+    # ---- 14. the dry run ------------------------------------------------------
+    log("[14] the dry run: the fake production mesh, the mining step, the "
+        "roofline against the card")
+    dry_totals, extra["dryrun"] = dryrun_phase(
+        torch, np, G, build, extra["model_main_path"]["forward_s"],
+        extra["training"]["main_path"]["median_step_ms"])
+    add_launches(totals, dry_totals, "14")
     for row in kernels:
         row["launches"] = totals[row["name"]]
         need(row["launches"] > 0,

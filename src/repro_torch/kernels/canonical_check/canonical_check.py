@@ -27,7 +27,7 @@ import torch
 
 from repro_torch.core import bitset
 from repro_torch.core.canonical import vertex_check_bits
-from repro_torch.kernels import build
+from repro_torch.kernels import build, counting
 from repro_torch.kernels.dispatch import on_cuda
 
 #: most members a row may hold (the 8-vertex pattern encoding).
@@ -43,6 +43,17 @@ def _check_int32(name: str, t: torch.Tensor, ndim: int, device) -> None:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
 
 
+def canonical_check_cost(members, adj_bits):
+    """(operations, bytes) of one launch on B rows: members, n_valid and
+    cand read and the flags written once, and at most one 32-byte sector
+    of the bitmap a (member, candidate) test, never more than the whole
+    bitmap; about 8 integer operations a test."""
+    b, k = members.shape
+    table = adj_bits.numel() * adj_bits.element_size()
+    return 8.0 * b * k, b * k * 4.0 + 2 * b * 4 + b + min(32.0 * b * k,
+                                                         table)
+
+
 def canonical_check_ref(members, n_valid, cand, adj_bits):
     """Plain version of :func:`canonical_check_cuda` (the jnp route of the
     JAX package, ``canonical.vertex_check``)."""
@@ -52,7 +63,12 @@ def canonical_check_ref(members, n_valid, cand, adj_bits):
 def canonical_check_cuda(members, n_valid, cand, adj_bits):
     """members (B, k) int32; n_valid (B,) int32; cand (B,) int32; adj_bits
     (N, W) int32. Returns (B,) bool — True iff members[:n_valid]+[cand] is
-    canonical. Any ``B`` is accepted, including 0."""
+    canonical. Any ``B`` is accepted, including 0. While the dry run
+    counts (``kernels.counting``), the kernel's charge."""
+    if counting.active() is not None:
+        counting.active().charge("canonical_check", *canonical_check_cost(
+            members, adj_bits))
+        return counting.like(members, (members.shape[0],), torch.bool)
     if not on_cuda(members):
         return canonical_check_ref(members, n_valid, cand, adj_bits)
     b, k = members.shape

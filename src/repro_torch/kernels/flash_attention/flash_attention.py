@@ -45,7 +45,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, counting
 from repro_torch.kernels.dispatch import on_cuda
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -299,3 +299,56 @@ class FlashAttentionFn(torch.autograd.Function):
         dq, dk, dv = flash_attention_bwd_cuda(q, k, v, out, dout, lse,
                                               ctx.causal, ctx.window)
         return dq, dk, dv, None, None
+
+
+def kept_pairs(sq: int, sk: int, causal: bool, window: int = 0) -> int:
+    """(query, key) pairs the masks keep: start-aligned causal, and the
+    window's last ``window`` keys (exact for Sq == Sk)."""
+    if not causal and not window:
+        return sq * sk
+    m = min(sk, window) if window else sk
+    if sq <= m:
+        return sq * (sq + 1) // 2
+    return m * (m + 1) // 2 + (sq - m) * m
+
+
+def flash_cost(q, k, v, causal: bool, window: int = 0, backward=False):
+    """(FLOPs, bytes) of one launch: the forward does 4 D operations a kept
+    pair (S = Q K^T and P V) and reads q, k, v and writes the output once;
+    the backward does 10 D a kept pair and reads q, k, v, out, dout and
+    the lse and writes dq, dk, dv once. No (Sq, Sk) scores."""
+    b, sq, h, d = q.shape
+    pairs = kept_pairs(sq, k.shape[1], causal, window)
+    es = q.element_size()
+    if backward:
+        return (10.0 * d * pairs * b * h,
+                (4.0 * q.numel() + 2 * k.numel() + 2 * v.numel()) * es
+                + 4.0 * b * h * sq)
+    return 4.0 * d * pairs * b * h, (2.0 * q.numel() + k.numel()
+                                     + v.numel()) * es
+
+
+class CountedFlashAttention(torch.autograd.Function):
+    """The dry run's stand-in (``kernels.counting``): charges the forward
+    and the backward kernels on the local shards, launches nothing."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        ql, kl, vl = (counting.local(t) for t in (q, k, v))
+        counting.active().charge("flash_attention",
+                                 *flash_cost(ql, kl, vl, causal, window))
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.window = causal, window
+        # the lse the backward reads: (B, H, Sq) f32 a device
+        ctx.lse = counting.like(q, (ql.shape[0], ql.shape[2], ql.shape[1]),
+                                torch.float32)
+        return counting.like(q, ql.shape[:-1] + (vl.shape[-1],))
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v = ctx.saved_tensors
+        ql, kl, vl = (counting.local(t) for t in (q, k, v))
+        counting.active().charge("flash_attention_bwd", *flash_cost(
+            ql, kl, vl, ctx.causal, ctx.window, backward=True))
+        return (counting.like(q, ql.shape), counting.like(k, kl.shape),
+                counting.like(v, vl.shape), None, None)

@@ -36,7 +36,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, counting
 from repro_torch.kernels.dispatch import on_cuda
 
 #: kernel types -> the C entry's type flag (1 = bf16, 0 = f32)
@@ -174,11 +174,49 @@ class RMSNormFn(torch.autograd.Function):
         return dx, dscale, None
 
 
+def rmsnorm_cost(x: torch.Tensor, scale: torch.Tensor, backward=False):
+    """(FLOPs, bytes) of one launch on x's rows: the forward reads x and
+    the scale and writes the output, 4 operations an element; the backward
+    reads x, dy and the scale and writes dx and dscale, 10 an element."""
+    d = x.shape[-1]
+    r = x.numel() // d if d else 0
+    es, ss = x.element_size(), scale.element_size()
+    if backward:
+        return 10.0 * r * d, 3.0 * r * d * es + 2.0 * d * ss
+    return 4.0 * r * d, 2.0 * r * d * es + d * ss
+
+
+class _CountedRMSNorm(torch.autograd.Function):
+    """The dry run's stand-in (``kernels.counting``): charges the forward
+    and the backward kernel, launches nothing."""
+
+    @staticmethod
+    def forward(ctx, x, scale, eps):
+        xl, sl = counting.local(x), counting.local(scale)
+        counting.active().charge("rmsnorm", *rmsnorm_cost(xl, sl))
+        ctx.save_for_backward(x, scale)
+        return counting.like(x, xl.shape)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scale = ctx.saved_tensors
+        xl, sl = counting.local(x), counting.local(scale)
+        counting.active().charge("rmsnorm_bwd",
+                                 *rmsnorm_cost(xl, sl, backward=True))
+        dscale = counting.like(
+            scale, sl.shape, placements=(counting.reduced_placements(
+                x, scale) if hasattr(x, "placements") else None))
+        return counting.like(x, xl.shape), dscale, None
+
+
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5):
     """What the model calls: on a CPU tensor the plain version (autograd
     differentiates it); on a CUDA tensor the kernel, through
     :class:`RMSNormFn` when autograd records and x or the scale wants a
-    gradient, so that the backward is the backward kernel."""
+    gradient, so that the backward is the backward kernel. While the dry
+    run counts (``kernels.counting``), the kernels' charge."""
+    if counting.active() is not None:
+        return _CountedRMSNorm.apply(x, scale, eps)
     if not on_cuda(x):
         return rmsnorm_ref(x, scale, eps)
     if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):

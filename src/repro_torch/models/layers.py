@@ -15,18 +15,32 @@ cross-attention the flash-attention kernel; on a CPU tensor they take the
 kernels' plain versions. Where autograd records (training), both kernels'
 gradients are their backward kernels on the card (each kernel's
 ``torch.autograd.Function``), and autograd differentiates the plain
-versions on the CPU. :func:`cross_entropy` is the reference's loss. The
+versions on the CPU. :func:`cross_entropy` is the reference's loss
+(:func:`next_token_loss` every family's). The
 decode steps and the MoE stay plain PyTorch, as the reference computes
-them outside any Pallas kernel. The sharding
-helpers of the reference (``constrain``, ``activation_sharding``,
-``spec_for``, ``build_param_specs``, ``LAYOUT``) have no meaning on one
-card and are not ported: the MoE's token groups are the reference's count
-without an activation context (8).
+them outside any Pallas kernel.
+
+The reference's sharding rules serve the dry run (``launch.dryrun``):
+:func:`spec_for` and :func:`build_param_specs` give each parameter its
+spec (:class:`P`, the reference's ``PartitionSpec``) under the
+:data:`LAYOUT` in force, and :func:`spec_placements` turns a spec into
+DTensor placements on a ``torch.distributed`` ``DeviceMesh``. Inside
+:func:`activation_sharding` the reference's constraint points
+(:func:`constrain`) redistribute a DTensor activation to the reference's
+layout, and a MoE layer splits its tokens into 256 groups; outside it (on
+one card) :func:`constrain` returns its argument and a MoE layer takes 8.
+The work that DTensor cannot partition by its own rules takes the dry
+run's forms (``launch.sharded``) in place of the plain functions here
+while a count runs.
 """
 from __future__ import annotations
 
-from typing import Optional
+import contextlib
+import contextvars
+import dataclasses
+from typing import Dict, Optional
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -35,6 +49,250 @@ from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.rmsnorm import rmsnorm as _rmsnorm_kernel
 
 DTYPE = torch.bfloat16
+
+
+# ---------------------------------------------------------------------------
+# Sharding rules: specs, the layout and the activation constraints
+# ---------------------------------------------------------------------------
+
+class P(tuple):
+    """A partition spec, the reference's ``PartitionSpec``: one entry per
+    dimension, ``None`` (replicated), a mesh axis name, or a tuple of
+    names (the dimension split over those axes, the first outermost)."""
+
+    def __new__(cls, *parts):
+        return super().__new__(cls, parts)
+
+    def __getnewargs__(self):
+        return tuple(self)
+
+    def __repr__(self) -> str:
+        return "P" + tuple.__repr__(self)
+
+
+_ACT_CTX: contextvars.ContextVar = contextvars.ContextVar("act_ctx",
+                                                          default=None)
+#: "opt" (tensor-parallel weights, ZeRO-1 optimizer state, activation
+#: constraints) or "baseline" (weights also sharded over the data axes):
+#: the reference's two layouts, which :func:`spec_for` reads
+LAYOUT: contextvars.ContextVar = contextvars.ContextVar("layout",
+                                                        default="opt")
+
+
+@dataclasses.dataclass(frozen=True)
+class ActSharding:
+    dp: tuple          # data-parallel axes for the batch dim
+    tp: str            # tensor axis name
+    tp_size: int
+
+
+@contextlib.contextmanager
+def activation_sharding(dp_axes, tp_axis, tp_size):
+    token = _ACT_CTX.set(ActSharding(tuple(dp_axes), tp_axis, tp_size))
+    try:
+        yield
+    finally:
+        _ACT_CTX.reset(token)
+
+
+def spec_placements(spec, mesh) -> list:
+    """DTensor placements of ``spec`` on a ``torch.distributed``
+    ``DeviceMesh`` with named dimensions: ``Shard(i)`` on each mesh
+    dimension that dimension ``i`` of the spec names, ``Replicate()`` on
+    the others."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    out = []
+    for name in mesh.mesh_dim_names:
+        dims = [i for i, e in enumerate(spec)
+                if e == name or (isinstance(e, tuple) and name in e)]
+        out.append(Shard(dims[0]) if dims else Replicate())
+    return out
+
+
+def constrain(x, *dims):
+    """The reference's activation constraint: inside
+    :func:`activation_sharding`, a DTensor ``x`` redistributed to the spec
+    ``dims`` names — ``"dp"`` (the batch axes, where the dimension is above
+    1), ``"tp"`` (the tensor axis, where it divides the dimension) or
+    ``None``; anything else is returned as it is."""
+    ctx = _ACT_CTX.get()
+    if ctx is None or not hasattr(x, "device_mesh"):
+        return x
+    parts = []
+    for i, d in enumerate(dims):
+        if d == "dp":
+            parts.append(ctx.dp if x.shape[i] > 1 else None)
+        elif d == "tp":
+            parts.append(ctx.tp if (x.shape[i] % ctx.tp_size == 0
+                                    and x.shape[i] >= ctx.tp_size) else None)
+        else:
+            parts.append(None)
+    out = x.redistribute(x.device_mesh,
+                         spec_placements(P(*parts), x.device_mesh))
+    local = out.to_local()
+    if not local.is_contiguous():
+        # a shard cut from a padded one (an uneven split): DTensor runs
+        # later views on the local shard, which must be viewable
+        from torch.distributed.tensor import DTensor
+
+        out = DTensor.from_local(local.contiguous(), out.device_mesh,
+                                 out.placements, run_check=False,
+                                 shape=out.shape, stride=out.stride())
+    return out
+
+
+def shardwise(fn, x, dims):
+    """``fn(x)``, for an ``fn`` that keeps ``x``'s shape except along
+    ``dims`` and mixes values only along them (a pad, a cumulative sum).
+    The dry run puts a DTensor form in its place (``launch.sharded``)."""
+    return fn(x)
+
+
+def batch_sharded(t):
+    """``t``: taken before a decode step's reshapes that merge dimensions.
+    The dry run puts a DTensor form in its place (``launch.sharded``)."""
+    return t
+
+
+def split_heads(y, n_heads: int, *shape):
+    """``y.reshape(shape)`` where the reshape splits ``y``'s last dimension
+    into ``n_heads`` heads. Inside :func:`activation_sharding`, where the
+    tensor axis does not divide the heads, ``y`` is first gathered over it:
+    DTensor cannot unflatten a sharded dimension unevenly."""
+    ctx = _ACT_CTX.get()
+    if ctx is not None and n_heads % ctx.tp_size:
+        y = constrain(y, *(["dp"] + [None] * (y.dim() - 1)))
+    return y.reshape(*shape)
+
+
+def merge_heads(o, n_heads: int):
+    """o (B, S, H, D) -> (B, S, H * D). Inside :func:`activation_sharding`,
+    where the tensor axis does not divide the heads, the result is held
+    replicated over it: the gradient that the row-parallel output
+    projection sends back is sharded over H * D, and DTensor cannot
+    unflatten that into heads unevenly, so it is gathered first."""
+    b, s = o.shape[:2]
+    out = o.reshape(b, s, n_heads * o.shape[-1])
+    ctx = _ACT_CTX.get()
+    if ctx is not None and n_heads % ctx.tp_size:
+        out = constrain(out, "dp", None, None)
+    return out
+
+
+def _divisible(dim: int, size: int) -> bool:
+    return size > 0 and dim % size == 0
+
+
+def spec_for(path: str, shape, mesh_axis_sizes: dict, fsdp_axes,
+             tp_axis="model") -> P:
+    """The reference's rule for one parameter at ``path`` (its pytree path,
+    "/"-joined). Under the "opt" layout weights are tensor-parallel only
+    and replicated over the data axes (ZeRO-1: only the optimizer state,
+    :func:`~repro_torch.training.optimizer.opt_state_specs`, is also
+    data-sharded); expert banks are also sharded over the data axes on
+    d_in, and the embedding on the vocabulary. "baseline" also shards each
+    weight's other dimension over the data axes. A dimension is sharded
+    only where the axis size divides it; parameters under 256 wide stay
+    replicated."""
+    tp = mesh_axis_sizes.get(tp_axis, 1)
+    fs = (int(np.prod([mesh_axis_sizes.get(a, 1) for a in fsdp_axes]))
+          if fsdp_axes else 1)
+    nd = len(shape)
+    spec = [None] * nd
+    if nd == 0 or max(shape) < 256:
+        return P(*spec)
+
+    def put(dim, axis, size):
+        if spec[dim] is None and _divisible(shape[dim], size):
+            spec[dim] = axis
+            return True
+        return False
+
+    fsdp = tuple(fsdp_axes) if fs > 1 else None
+    p = path.lower()
+    row_parallel = any(t in p for t in ("wo", "w_out", "out_proj", "down"))
+    expert = "experts" in p
+    zero1 = LAYOUT.get() != "baseline"
+    if expert and nd >= 3:
+        put(0, tp_axis, tp)
+        if fsdp:
+            put(1, fsdp, fs) or put(2, fsdp, fs)
+    elif "unembed" in p and nd == 2:
+        put(1, tp_axis, tp)
+        if fsdp and not zero1:
+            put(0, fsdp, fs)
+    elif "embed" in p and nd == 2:
+        put(1, tp_axis, tp)
+        if fsdp:
+            put(0, fsdp, fs)
+    elif nd >= 2 and row_parallel:
+        put(nd - 2, tp_axis, tp)
+        if fsdp and not zero1:
+            put(nd - 1, fsdp, fs)
+    elif nd >= 2:
+        put(nd - 1, tp_axis, tp)
+        if fsdp and not zero1:
+            put(nd - 2, fsdp, fs)
+    return P(*spec)
+
+
+def reference_path(name: str):
+    """A port parameter name -> (the reference's pytree path, the stack
+    indices in it): ``blocks.0.mamba.1.m.A_log`` -> (``blocks/mamba/m/
+    A_log``, [0, 1])."""
+    parts = name.split(".")
+    return ("/".join(q for q in parts if not q.isdigit()),
+            [int(q) for q in parts if q.isdigit()])
+
+
+def build_param_specs(model, mesh, fsdp_axes) -> Dict[str, P]:
+    """Each parameter of ``model`` (by the port's name) -> the reference's
+    spec (``build_param_specs`` of its stacked pytree) without the leading
+    stack entries: ``layers.3.attn.wq.w`` gets the spec of
+    ``layers/attn/wq/w`` minus its leading ``None``. ``mesh`` needs only
+    ``axis_names`` and ``shape`` (a name -> size mapping), as the
+    reference's reads (a ``torch.distributed`` mesh: :func:`mesh_sizes`).
+    Raises where the reference would shard a stack axis, which a
+    per-layer parameter cannot carry."""
+    sizes = mesh_sizes(mesh)
+    out = {}
+    for name, prm in model.named_parameters():
+        path, idx = reference_path(name)
+        stack = _stack_sizes(model, name)
+        shape = tuple(stack) + tuple(prm.shape)
+        stacked = (path.startswith("layers") or "/layers" in path
+                   or "blocks" in path)
+        if stacked and len(shape) >= 1:
+            spec = P(None, *spec_for(path, shape[1:], sizes, fsdp_axes))
+        else:
+            spec = spec_for(path, shape, sizes, fsdp_axes)
+        if any(e is not None for e in spec[:len(idx)]):
+            raise ValueError(f"{name}: the reference shards a stack axis "
+                             f"({spec})")
+        out[name] = P(*spec[len(idx):])
+    return out
+
+
+def mesh_sizes(mesh) -> Dict[str, int]:
+    """Axis name -> size of a mesh: the reference's stand-ins (``axis_names``
+    and ``shape``) or a ``torch.distributed`` ``DeviceMesh``."""
+    names = getattr(mesh, "mesh_dim_names", None)
+    if names is not None:
+        return dict(zip(names, mesh.mesh.shape))
+    return dict(zip(mesh.axis_names, (mesh.shape[a]
+                                      for a in mesh.axis_names)))
+
+
+def _stack_sizes(model, name: str):
+    """The lengths of the stacks a parameter lies in, outermost first (the
+    reference's leading axes)."""
+    parts = name.split(".")
+    out = []
+    for i, q in enumerate(parts):
+        if q.isdigit():
+            out.append(len(model.get_submodule(".".join(parts[:i]))))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -123,6 +381,14 @@ def cross_entropy(logits, labels):
     return (lse - gold).mean()
 
 
+def next_token_loss(logits, labels, skip: int = 0):
+    """Every family's loss: :func:`cross_entropy` of the logits at
+    positions ``skip``..``skip+S-2`` against ``labels`` 1..S-1 (the vlm
+    skips its patch positions). logits (B, skip+S, V), labels (B, S). The
+    dry run puts a DTensor form in its place (``launch.sharded``)."""
+    return cross_entropy(logits[:, skip:-1], labels[:, 1:])
+
+
 def _promoted(*ts):
     """``ts`` in their promoted type: JAX promotes a bf16 x f32 product to
     f32 where PyTorch's matmul and einsum refuse mixed types. The model's
@@ -203,14 +469,37 @@ def gqa_attention(cfg: ArchConfig, p: Attention, x, positions, *,
     sum); the plain version keeps them in f32."""
     b, s, _ = x.shape
     dh = cfg.head_dim
-    q = _proj(x, p.wq).reshape(b, s, cfg.n_heads, dh)
-    k = _proj(x, p.wk).reshape(b, s, cfg.n_kv_heads, dh)
-    v = _proj(x, p.wv).reshape(b, s, cfg.n_kv_heads, dh)
+    q = split_heads(_proj(x, p.wq), cfg.n_heads, b, s, cfg.n_heads, dh)
+    k = split_heads(_proj(x, p.wk), cfg.n_kv_heads, b, s, cfg.n_kv_heads, dh)
+    v = split_heads(_proj(x, p.wv), cfg.n_kv_heads, b, s, cfg.n_kv_heads, dh)
+    q = constrain(q, "dp", None, "tp", None)
+    k = constrain(k, "dp", None, "tp", None)
+    v = constrain(v, "dp", None, "tp", None)
     cos, sin = rope_freqs(positions, dh, cfg.rope_theta)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     o = flash_attention(q, k, v, causal, window)
-    return _proj(o.reshape(b, s, cfg.n_heads * dh), p.wo)
+    return constrain(_proj(merge_heads(o, cfg.n_heads), p.wo),
+                     "dp", None, None)
+
+
+def write_slot(cache, pos: int, val):
+    """``cache[:, pos] = val`` in the cache's type, in place: a decode
+    step's write of its token (the reference's ``dynamic_update_slice``).
+    The dry run puts a DTensor form in its place (``launch.sharded``)."""
+    cache[:, pos] = val.to(cache.dtype)
+
+
+def slot_softmax(scores):
+    """``torch.softmax(scores, dim=-1)`` over a decode step's cache slots.
+    The dry run puts a DTensor form in its place (``launch.sharded``)."""
+    return torch.softmax(scores, dim=-1)
+
+
+def _prefix(cache, pos: int):
+    """Slots 0..pos of a (B, S, ...) cache; the cache itself at the last
+    slot (no slice: a DTensor cache sharded on S would be gathered)."""
+    return cache if pos + 1 == cache.shape[1] else cache[:, :pos + 1]
 
 
 def gqa_decode(cfg: ArchConfig, p: Attention, x, cache_k, cache_v, pos: int):
@@ -221,25 +510,26 @@ def gqa_decode(cfg: ArchConfig, p: Attention, x, cache_k, cache_v, pos: int):
     ``(out, cache_k, cache_v)``."""
     b = x.shape[0]
     dh = cfg.head_dim
-    q = _proj(x, p.wq).reshape(b, 1, cfg.n_heads, dh)
-    k = _proj(x, p.wk).reshape(b, 1, cfg.n_kv_heads, dh)
-    v = _proj(x, p.wv).reshape(b, 1, cfg.n_kv_heads, dh)
+    q = split_heads(_proj(x, p.wq), cfg.n_heads, b, 1, cfg.n_heads, dh)
+    k = split_heads(_proj(x, p.wk), cfg.n_kv_heads, b, 1, cfg.n_kv_heads, dh)
+    v = split_heads(_proj(x, p.wv), cfg.n_kv_heads, b, 1, cfg.n_kv_heads, dh)
     posv = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
     cos, sin = rope_freqs(posv, dh, cfg.rope_theta)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
-    cache_k[:, pos:pos + 1] = k.to(cache_k.dtype)
-    cache_v[:, pos:pos + 1] = v.to(cache_v.dtype)
+    write_slot(cache_k, pos, k[:, 0])
+    write_slot(cache_v, pos, v[:, 0])
 
     g = cfg.n_heads // cfg.n_kv_heads
-    q = q.reshape(b, cfg.n_kv_heads, g, dh)
+    q = batch_sharded(q).reshape(b, cfg.n_kv_heads, g, dh)
     # only slots 0..pos are valid: the reference masks the rest to -1e30,
     # whose softmax weight is exactly 0, so reading the prefix is the same
-    keys = cache_k[:, :pos + 1].to(x.dtype)
-    vals = cache_v[:, :pos + 1].to(x.dtype)
+    keys = _prefix(cache_k, pos).to(x.dtype)
+    vals = _prefix(cache_v, pos).to(x.dtype)
     scores = torch.einsum("bhgd,bkhd->bhgk", q.float(), keys.float()) * dh ** -0.5
-    w = torch.softmax(scores, dim=-1).to(x.dtype)
-    o = torch.einsum("bhgk,bkhd->bhgd", w, vals).reshape(b, 1, cfg.n_heads * dh)
+    w = slot_softmax(scores).to(x.dtype)
+    o = batch_sharded(torch.einsum("bhgk,bkhd->bhgd", w, vals)).reshape(
+        b, 1, cfg.n_heads * dh)
     return _proj(o, p.wo), cache_k, cache_v
 
 
@@ -286,14 +576,18 @@ def mla_attention(cfg: ArchConfig, p: MLA, x, positions):
     if dv > dn + dr:
         raise ValueError(f"MLA v head dim {dv} above the q/k head dim "
                          f"{dn + dr}: zero-padding v cannot reach it")
-    q = _mla_q(cfg, p, x).reshape(b, s, h, dn + dr)
+    q = split_heads(_mla_q(cfg, p, x), h, b, s, h, dn + dr)
+    q = constrain(q, "dp", None, "tp", None)
     q_nope, q_rope = q[..., :dn], q[..., dn:]
 
     kv = _proj(x, p.wkv_a)
     c_kv, k_rope = kv[..., :cfg.kv_lora], kv[..., cfg.kv_lora:]
     c_kv = rmsnorm(c_kv, p.kv_norm, cfg.norm_eps)
-    k_nope = _proj(c_kv, p.wk_b).reshape(b, s, h, dn)
-    v = _proj(c_kv, p.wv_b).reshape(b, s, h, dv)
+    c_kv = constrain(c_kv, "dp", None, None)
+    k_nope = constrain(split_heads(_proj(c_kv, p.wk_b), h, b, s, h, dn),
+                       "dp", None, "tp", None)
+    v = constrain(split_heads(_proj(c_kv, p.wv_b), h, b, s, h, dv),
+                  "dp", None, "tp", None)
 
     cos, sin = rope_freqs(positions, dr, cfg.rope_theta)
     q_rope = apply_rope(q_rope, cos, sin)
@@ -301,8 +595,10 @@ def mla_attention(cfg: ArchConfig, p: MLA, x, positions):
 
     q_cat = torch.cat([q_nope, q_rope], dim=-1)               # (b,s,h,dn+dr)
     k_cat = torch.cat([k_nope, k_rope.expand(b, s, h, dr)], dim=-1)
+    q_cat = constrain(q_cat, "dp", None, "tp", None)
+    k_cat = constrain(k_cat, "dp", None, "tp", None)
     o = attention_narrow_v(q_cat, k_cat, v)
-    return _proj(o.reshape(b, s, h * dv), p.wo)
+    return constrain(_proj(merge_heads(o, h), p.wo), "dp", None, None)
 
 
 def attention_narrow_v(q, k, v, causal=True):
@@ -312,7 +608,8 @@ def attention_narrow_v(q, k, v, causal=True):
     the zero columns add nothing to the kept ones. q (B,S,H,Dk), k
     (B,S,KV,Dk), v (B,S,KV,Dv) -> (B,S,H,Dv)."""
     dk, dv = k.shape[-1], v.shape[-1]
-    v_pad = torch.nn.functional.pad(v, (0, dk - dv))
+    v_pad = shardwise(lambda t: torch.nn.functional.pad(t, (0, dk - dv)),
+                      v, (-1,))
     return flash_attention(q, k, v_pad, causal)[..., :dv]
 
 
@@ -334,19 +631,19 @@ def mla_decode(cfg: ArchConfig, p: MLA, x, cache_ckv, cache_krope, pos: int):
     kv = _proj(x[:, 0], p.wkv_a)
     c_kv = rmsnorm(kv[..., :cfg.kv_lora], p.kv_norm, cfg.norm_eps)
     k_rope = apply_rope(kv[:, None, None, cfg.kv_lora:], cos, sin)[:, 0, 0]
-    cache_ckv[:, pos] = c_kv.to(cache_ckv.dtype)
-    cache_krope[:, pos] = k_rope.to(cache_krope.dtype)
+    write_slot(cache_ckv, pos, c_kv)
+    write_slot(cache_krope, pos, k_rope)
 
     # absorb W_k_b into q: q_lat (b,h,kv_lora); slots past pos are masked
     # to -1e30 by the reference (weight exactly 0), so read the prefix
     q_lat = einsum("bhd,chd->bhc", q_nope,
                    p.wk_b.w.reshape(cfg.kv_lora, h, dn))
-    ckv = cache_ckv[:, :pos + 1].to(x.dtype)
-    krope = cache_krope[:, :pos + 1].to(x.dtype)
+    ckv = _prefix(cache_ckv, pos).to(x.dtype)
+    krope = _prefix(cache_krope, pos).to(x.dtype)
     scores = (torch.einsum("bhc,bkc->bhk", q_lat.float(), ckv.float())
               + torch.einsum("bhd,bkd->bhk", q_rope.float(), krope.float())
               ) * (dn + dr) ** -0.5
-    w = torch.softmax(scores, dim=-1).to(x.dtype)
+    w = slot_softmax(scores).to(x.dtype)
     o_lat = einsum("bhk,bkc->bhc", w, ckv)
     o = einsum("bhc,chd->bhd", o_lat, p.wv_b.w.reshape(cfg.kv_lora, h, dv))
     return _proj(o.reshape(b, 1, h * dv), p.wo), cache_ckv, cache_krope
@@ -371,9 +668,15 @@ def init_mlp(d_model, d_ff, ini: Init) -> MLP:
 
 
 def mlp(p: MLP, x):
-    h = (torch.nn.functional.silu(matmul(x, p.w_gate.w))
-         * matmul(x, p.w_in.w))
-    return matmul(h, p.w_out.w)
+    def hidden(w):
+        # column-parallel: the hidden width over the tensor axis, in the
+        # forward and (as a redistribution's backward) in the gradient
+        y = matmul(x, w)
+        return constrain(y, "dp", None, "tp") if y.dim() == 3 else y
+
+    h = torch.nn.functional.silu(hidden(p.w_gate.w)) * hidden(p.w_in.w)
+    out = matmul(h, p.w_out.w)
+    return constrain(out, *(["dp"] + [None] * (out.dim() - 1)))
 
 
 class Experts(nn.Module):
@@ -404,10 +707,11 @@ def init_moe(cfg: ArchConfig, ini: Init) -> MoE:
 
 
 def _moe_groups(t: int) -> int:
-    """Token-group count: the largest divisor of ``t`` up to 8 (the
-    reference's count without an activation context; with one it aligns
-    the groups with the data axes of a mesh)."""
-    g = min(8, t)
+    """Token-group count: the largest divisor of ``t`` up to 8, or up to
+    256 inside :func:`activation_sharding`, where the groups align with
+    the data axes so that routing is local to a group and the (G, E, C, d)
+    dispatch's change of layout is the expert-parallel all-to-all."""
+    g = min(256 if _ACT_CTX.get() is not None else 8, t)
     while t % g:
         g -= 1
     return max(g, 1)
@@ -489,6 +793,14 @@ def _moe_combine(meta, out, tg: int, cap: int):
     return y.to(DTYPE)
 
 
+def _expert_ffn(disp, w_gate, w_in, w_out):
+    """The experts' SwiGLU on their dispatch buffer: (G, E, C, d) ->
+    (G, E, C, d), batched over the experts."""
+    h = torch.nn.functional.silu(einsum("gecd,edf->gecf", disp, w_gate))
+    h = h * einsum("gecd,edf->gecf", disp, w_in)
+    return einsum("gecf,efd->gecd", h, w_out)
+
+
 def moe(cfg: ArchConfig, p: MoE, x):
     """Top-k token-choice MoE, grouped sorted dispatch (the GShard
     schedule): the tokens split into groups, each routed on its own into a
@@ -501,11 +813,11 @@ def moe(cfg: ArchConfig, p: MoE, x):
     cap = _moe_cap(cfg, tg)
     xt = x.reshape(g, tg, d)
     disp, meta = _moe_dispatch(cfg, p, xt, cap)
+    disp = constrain(disp, "dp", "tp", None, None)   # (G, E, C, d) all-to-all
     ex = p.experts
-    h = torch.nn.functional.silu(einsum("gecd,edf->gecf", disp, ex.w_gate))
-    h = h * einsum("gecd,edf->gecf", disp, ex.w_in)
-    out = einsum("gecf,efd->gecd", h, ex.w_out)
+    out = _expert_ffn(disp, ex.w_gate, ex.w_in, ex.w_out)
+    out = constrain(out, "dp", "tp", None, None)
     y = _moe_combine(meta, out, tg, cap)
     if p.shared is not None:
         y = y + mlp(p.shared, xt)
-    return y.reshape(b, s, d)
+    return constrain(y.reshape(b, s, d), "dp", None, None)

@@ -25,7 +25,9 @@ RMSNorm kernel at every norm, both under ``torch.inference_mode``.
 Training: ``loss(batch)``, the reference's mean next-token cross entropy,
 through the same forward body with autograd recording, so that on the card
 the two kernels' backward kernels give the gradients
-(``repro_torch.training``).
+(``repro_torch.training``). The reference's facade's shape-only members
+(``init_shapes``, ``cache_shapes``, ``train_inputs``, ``decode_inputs``)
+are functions of the config here, on the meta skeleton (``skeleton``).
 """
 from __future__ import annotations
 
@@ -136,8 +138,11 @@ class _LM(nn.Module):
 
     def _embed(self, tokens):
         # a gather, as the reference's embed[tokens]; its gradient on the
-        # card sums each row's contributions in a fixed (sorted) order
-        return torch.nn.functional.embedding(tokens, self.embed)
+        # card sums each row's contributions in a fixed (sorted) order.
+        # The residual stream's layout, (dp, None, None), is pinned here
+        # (a no-op outside the dry run's activation layout)
+        return L.constrain(torch.nn.functional.embedding(tokens, self.embed),
+                           "dp", None, None)
 
     def _batch(self, batch) -> Dict[str, torch.Tensor]:
         """The batch's arrays (numpy or tensors) as tensors on the model's
@@ -206,9 +211,8 @@ class DecoderLM(_LM):
         batch = self._batch(batch)
         pe = batch.get("patch_embeds")
         logits = self._forward(batch["tokens"], pe)
-        if pe is not None:
-            logits = logits[:, pe.shape[1]:]
-        return L.cross_entropy(logits[:, :-1], batch["labels"][:, 1:])
+        return L.next_token_loss(logits, batch["labels"],
+                                 0 if pe is None else pe.shape[1])
 
     def _forward(self, tokens, patch_embeds=None):
         cfg = self.cfg
@@ -284,7 +288,7 @@ class HybridLM(_LM):
         next-token cross entropy of ``tokens`` against ``labels``."""
         batch = self._batch(batch)
         logits = self._forward(batch["tokens"])
-        return L.cross_entropy(logits[:, :-1], batch["labels"][:, 1:])
+        return L.next_token_loss(logits, batch["labels"])
 
     def _forward(self, tokens, window=0):
         cfg = self.cfg
@@ -381,7 +385,7 @@ class XLSTMLM(_LM):
         next-token cross entropy of ``tokens`` against ``labels``."""
         batch = self._batch(batch)
         logits = self._forward(batch["tokens"])
-        return L.cross_entropy(logits[:, :-1], batch["labels"][:, 1:])
+        return L.next_token_loss(logits, batch["labels"])
 
     def _forward(self, tokens):
         cfg = self.cfg
@@ -495,11 +499,13 @@ class EncDecLM(_LM):
         b, s, _ = x.shape
         se = enc.shape[1]
         dh = cfg.head_dim
-        q = L.matmul(x, lp.cross_q.w).reshape(b, s, cfg.n_heads, dh)
-        k = L.matmul(enc, lp.cross_k.w).reshape(b, se, cfg.n_kv_heads, dh)
-        v = L.matmul(enc, lp.cross_v.w).reshape(b, se, cfg.n_kv_heads, dh)
+        kv = cfg.n_kv_heads
+        q = L.split_heads(L.matmul(x, lp.cross_q.w), cfg.n_heads,
+                          b, s, cfg.n_heads, dh)
+        k = L.split_heads(L.matmul(enc, lp.cross_k.w), kv, b, se, kv, dh)
+        v = L.split_heads(L.matmul(enc, lp.cross_v.w), kv, b, se, kv, dh)
         o = L.flash_attention(q, k, v, causal=False)
-        return L.matmul(o.reshape(b, s, cfg.n_heads * dh), lp.cross_o.w)
+        return L.matmul(L.merge_heads(o, cfg.n_heads), lp.cross_o.w)
 
     @torch.inference_mode()
     def forward(self, tokens, frames):
@@ -512,7 +518,7 @@ class EncDecLM(_LM):
         against ``labels``."""
         batch = self._batch(batch)
         logits = self._forward(batch["tokens"], batch["frames"])
-        return L.cross_entropy(logits[:, :-1], batch["labels"][:, 1:])
+        return L.next_token_loss(logits, batch["labels"])
 
     def _forward(self, tokens, frames):
         cfg = self.cfg
@@ -556,11 +562,12 @@ class EncDecLM(_LM):
                                    cache["self"]["v"][i], pos)
             x = x + a
             hh = L.rmsnorm(x, lp.lnx, cfg.norm_eps)
-            q = L.matmul(hh, lp.cross_q.w).reshape(b, cfg.n_kv_heads, g, dh)
+            q = L.split_heads(L.matmul(hh, lp.cross_q.w), cfg.n_heads,
+                              b, cfg.n_kv_heads, g, dh)
             ck, cv = cache["cross_k"][i], cache["cross_v"][i]
             sc = L.einsum("bhgd,bkhd->bhgk", q, ck).float() * dh ** -0.5
             w = torch.softmax(sc, dim=-1).to(x.dtype)
-            o = L.einsum("bhgk,bkhd->bhgd", w, cv).reshape(
+            o = L.batch_sharded(L.einsum("bhgk,bkhd->bhgd", w, cv)).reshape(
                 b, 1, cfg.n_heads * dh)
             x = x + L.matmul(o, lp.cross_o.w)
             hh = L.rmsnorm(x, lp.ln2, cfg.norm_eps)
@@ -589,6 +596,63 @@ def build_model(cfg: ArchConfig, device=None, seed: int = 0) -> _LM:
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     return _family(cfg)(cfg, Init(gen))
+
+
+# ---------------------------------------------------------------------------
+# The shape-only members of the reference's Model facade
+# ---------------------------------------------------------------------------
+# The port's build_model returns the family's module, which holds its
+# weights, so there is no facade object to carry these; they are functions
+# of the config, since a shape-only model is one that is never built with
+# weights (llama4-maverick-400b-a17b's would not fit any card). Each builds
+# the family's skeleton on the meta device: names, shapes and dtypes, no
+# memory.
+
+def skeleton(cfg: ArchConfig) -> _LM:
+    """The family's model on the ``meta`` device (``Init(None)``)."""
+    return _family(cfg)(cfg, Init(None))
+
+
+def init_shapes(cfg: ArchConfig) -> Dict[str, torch.Tensor]:
+    """The reference's ``Model.init_shapes``: every parameter as a meta
+    tensor, by the port's name (the reference's tree through
+    :func:`flatten_params`)."""
+    return dict(skeleton(cfg).named_parameters())
+
+
+def cache_shapes(cfg: ArchConfig, b: int, s: int,
+                 model: Optional[_LM] = None) -> Dict[str, Any]:
+    """The reference's ``Model.cache_shapes``: the family's
+    ``init_cache(b, s)`` on the meta device (``model``: a skeleton to
+    reuse)."""
+    return (model if model is not None else skeleton(cfg)).init_cache(b, s)
+
+
+def train_inputs(cfg: ArchConfig, shape: ShapeConfig) -> Dict[str, Any]:
+    """The reference's ``Model.train_inputs``: ``tokens`` and ``labels``
+    (B, S) int32, and the vlm's ``patch_embeds`` or the encdec's ``frames``
+    (B, n, d) bf16, as meta tensors."""
+    b, s = shape.global_batch, shape.seq_len
+    meta = dict(device="meta")
+    batch = {"tokens": torch.empty((b, s), dtype=torch.int32, **meta),
+             "labels": torch.empty((b, s), dtype=torch.int32, **meta)}
+    extra = {"vlm": ("patch_embeds", cfg.n_patches),
+             "encdec": ("frames", cfg.encoder_seq)}.get(cfg.family)
+    if extra is not None:
+        name, n = extra
+        batch[name] = torch.empty((b, n, cfg.d_model), dtype=DTYPE, **meta)
+    return batch
+
+
+def decode_inputs(cfg: ArchConfig, shape: ShapeConfig,
+                  model: Optional[_LM] = None) -> Dict[str, Any]:
+    """The reference's ``Model.decode_inputs``: ``token`` (B, 1) int32,
+    ``pos`` () int32 and the cache at (B, S), as meta tensors. (The port's
+    ``decode_step`` takes ``pos`` as a Python int.)"""
+    b, s = shape.global_batch, shape.seq_len
+    return {"token": torch.empty((b, 1), dtype=torch.int32, device="meta"),
+            "pos": torch.empty((), dtype=torch.int32, device="meta"),
+            "cache": cache_shapes(cfg, b, s, model)}
 
 
 def make_batch(cfg: ArchConfig, shape: ShapeConfig,

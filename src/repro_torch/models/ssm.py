@@ -23,7 +23,8 @@ from torch.nn import functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.layers import (
-    DTYPE, Dense, Init, _param, einsum, matmul, rmsnorm)
+    DTYPE, Dense, Init, _param, batch_sharded, constrain, einsum, matmul,
+    rmsnorm, shardwise, split_heads)
 
 
 # ---------------------------------------------------------------------------
@@ -66,7 +67,7 @@ def init_mamba2(cfg: ArchConfig, ini: Init) -> Mamba2:
 def _causal_conv(x, w):
     """Depthwise causal conv, x (B,S,C), w (K,C)."""
     k = w.shape[0]
-    xp = F.pad(x, (0, 0, k - 1, 0))
+    xp = shardwise(lambda t: F.pad(t, (0, 0, k - 1, 0)), x, (1,))
     out = torch.zeros_like(x)
     for i in range(k):
         out = out + xp[:, i:i + x.shape[1], :] * w[i]
@@ -151,7 +152,10 @@ def mamba2_forward(cfg: ArchConfig, p: Mamba2, x):
     """x (B,S,d) -> (B,S,d)."""
     b, s, _ = x.shape
     d_inner, h, n = mamba_dims(cfg)
-    z, xin, Bc, Cc, dt = _mamba_split(cfg, matmul(x, p.in_proj.w))
+    # column-parallel, in the forward and (as a redistribution's backward)
+    # in the gradient (a no-op outside the dry run)
+    zxbcdt = constrain(matmul(x, p.in_proj.w), "dp", None, "tp")
+    z, xin, Bc, Cc, dt = _mamba_split(cfg, zxbcdt)
     conv_in = torch.cat([xin, Bc, Cc], dim=-1)
     conv_out = F.silu(_causal_conv(conv_in, p.conv_w))
     xin, Bc, Cc = torch.split(conv_out, [d_inner, n, n], dim=-1)
@@ -162,7 +166,11 @@ def mamba2_forward(cfg: ArchConfig, p: Mamba2, x):
     y = chunked_linear_attention(Cc, Bc, xh, a, cfg.ssm_chunk)
     y = y + xh * p.D[None, None, :, None]
     y = y.reshape(b, s, d_inner)
-    y = rmsnorm(y * F.silu(z), p.gate_norm, cfg.norm_eps)
+    # the gate and the row-parallel output projection's input: inner
+    # channels over the tensor axis (a no-op outside the dry run)
+    z = constrain(z, "dp", None, "tp")
+    y = constrain(rmsnorm(y * F.silu(z), p.gate_norm, cfg.norm_eps),
+                  "dp", None, "tp")
     return matmul(y, p.out_proj.w)
 
 
@@ -231,9 +239,9 @@ def _mlstm_inputs(cfg: ArchConfig, p: MLSTM, x):
     d_inner, h, dqk, dv = xlstm_dims(cfg)
     lead = x.shape[:-1]
     u, z = matmul(x, p.up_proj.w).chunk(2, dim=-1)
-    q = matmul(u, p.wq.w).reshape(*lead, h, dqk) * dqk ** -0.5
-    k = matmul(u, p.wk.w).reshape(*lead, h, dqk)
-    v = matmul(u, p.wv.w).reshape(*lead, h, dv)
+    q = split_heads(matmul(u, p.wq.w), h, *lead, h, dqk) * dqk ** -0.5
+    k = split_heads(matmul(u, p.wk.w), h, *lead, h, dqk)
+    v = split_heads(matmul(u, p.wv.w), h, *lead, h, dv)
     gates = matmul(u, p.w_gates.w)
     f = torch.sigmoid(gates[..., :h].float() + 4.0)       # forget
     i = torch.sigmoid(gates[..., h:].float())             # input
@@ -268,7 +276,7 @@ def mlstm_decode(cfg: ArchConfig, p: MLSTM, x, C, norm_n):
     norm_n.mul_(f[..., None]).add_(i[..., None] * k.float())
     num = torch.einsum("bhk,bhkv->bhv", q.float(), C)
     den = torch.einsum("bhk,bhk->bh", q.float(), norm_n).abs().clamp_min(1.0)
-    y = (num / den[..., None]).to(DTYPE).reshape(b, d_inner)
+    y = batch_sharded((num / den[..., None]).to(DTYPE)).reshape(b, d_inner)
     y = rmsnorm(y, p.out_norm, cfg.norm_eps) * F.silu(z)
     return matmul(y, p.down_proj.w)[:, None], C, norm_n
 
@@ -292,10 +300,11 @@ def init_slstm(cfg: ArchConfig, ini: Init) -> SLSTM:
     )
 
 
-def _slstm_cell(p: SLSTM, pre, c, hidden):
-    """One step: pre (B,h,4dh) input pre-activations, c (B,h,dh) f32,
-    hidden (B,h,dh) bf16 -> the new (c, hidden)."""
-    rec = einsum("bhd,hdk->bhk", hidden, p.r)
+def _slstm_cell(r, pre, c, hidden):
+    """One step: r (h,dh,4dh) the recurrent weights, pre (B,h,4dh) input
+    pre-activations, c (B,h,dh) f32, hidden (B,h,dh) bf16 -> the new (c,
+    hidden)."""
+    rec = einsum("bhd,hdk->bhk", hidden, r)
     ig, fg, zg, og = (pre + rec).float().chunk(4, dim=-1)
     c = torch.sigmoid(fg + 4.0) * c + torch.sigmoid(ig) * torch.tanh(zg)
     hidden = (torch.sigmoid(og) * torch.tanh(c)).to(DTYPE)
@@ -308,16 +317,24 @@ def slstm_forward(cfg: ArchConfig, p: SLSTM, x):
     b, s, d = x.shape
     h = cfg.n_heads
     dh = d // h
-    pre_all = matmul(x, p.w_in.w).reshape(b, s, h, 4 * dh)
-    c = torch.zeros((b, h, dh), dtype=torch.float32, device=x.device)
-    hidden = torch.zeros((b, h, dh), dtype=DTYPE, device=x.device)
+    pre_all = split_heads(matmul(x, p.w_in.w), h, b, s, h, 4 * dh)
+    ys = _slstm_scan(pre_all, p.r)
+    y = rmsnorm(ys.reshape(b, s, d), p.out_norm, cfg.norm_eps)
+    return matmul(y, p.proj.w)
+
+
+def _slstm_scan(pre_all, r):
+    """The time loop: pre_all (B,S,h,4dh) -> the hidden states (B,S,h,dh)
+    from zero states."""
+    b, s, h, _ = pre_all.shape
+    dh = r.shape[1]
+    c = torch.zeros((b, h, dh), dtype=torch.float32, device=pre_all.device)
+    hidden = torch.zeros((b, h, dh), dtype=DTYPE, device=pre_all.device)
     ys = []
     for t in range(s):
-        c, hidden = _slstm_cell(p, pre_all[:, t], c, hidden)
+        c, hidden = _slstm_cell(r, pre_all[:, t], c, hidden)
         ys.append(hidden)
-    y = rmsnorm(torch.stack(ys, dim=1).reshape(b, s, d), p.out_norm,
-                cfg.norm_eps)
-    return matmul(y, p.proj.w)
+    return torch.stack(ys, dim=1)
 
 
 def slstm_decode(cfg: ArchConfig, p: SLSTM, x, c, hidden):
@@ -326,9 +343,10 @@ def slstm_decode(cfg: ArchConfig, p: SLSTM, x, c, hidden):
     b = x.shape[0]
     h = cfg.n_heads
     dh = cfg.d_model // h
-    pre = matmul(x[:, 0], p.w_in.w).reshape(b, h, 4 * dh)
-    c2, h2 = _slstm_cell(p, pre, c, hidden)
+    pre = split_heads(matmul(x[:, 0], p.w_in.w), h, b, h, 4 * dh)
+    c2, h2 = _slstm_cell(p.r, pre, c, hidden)
     c.copy_(c2)
     hidden.copy_(h2)
-    y = rmsnorm(hidden.reshape(b, cfg.d_model), p.out_norm, cfg.norm_eps)
+    y = rmsnorm(batch_sharded(hidden).reshape(b, cfg.d_model), p.out_norm,
+                cfg.norm_eps)
     return matmul(y, p.proj.w)[:, None], c, hidden

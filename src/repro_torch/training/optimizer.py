@@ -13,10 +13,10 @@ the model's parameters take the master weights cast to their own type.
 ``torch.optim.AdamW`` is not used: its order of operations differs.
 
 Everything stays on the parameters' device, the step counter and the
-schedule included, so a step reads nothing back to the host. The
-reference's ``opt_state_specs`` (ZeRO-1 sharding rules for a mesh) has no
-meaning on one card and is not ported, nor is ``fp32_grad_reduce`` (the
-type of the reference's cross-pod gradient reduce).
+schedule included, so a step reads nothing back to the host.
+:func:`opt_state_specs` is the reference's ZeRO-1 rule for a mesh, which
+the dry run places the state by. ``fp32_grad_reduce`` (the type of the
+reference's cross-pod gradient reduce) is not ported.
 """
 from __future__ import annotations
 
@@ -140,3 +140,40 @@ def apply_update(cfg: AdamWConfig, params: Mapping[str, torch.Tensor],
     new_state, metrics = step_(cfg, new_params, grads, new_state,
                                ranks=ranks)
     return new_params, new_state, metrics
+
+
+def opt_state_specs(param_specs, params_struct=None, mesh=None,
+                    fsdp_axes=("data",)) -> OptState:
+    """The reference's ZeRO-1 optimizer-state specs: each parameter's spec
+    (``layers.build_param_specs``, by name), with its first unsharded
+    dimension that the data axes divide also sharded over them, unless the
+    spec already uses a data axis (the experts). ``params_struct``: the
+    parameters by name (meta tensors serve); ``mesh``: anything
+    ``layers.mesh_sizes`` reads. Without them the states take the
+    parameters' specs."""
+    from repro_torch.models.layers import P, mesh_sizes
+
+    if params_struct is None or mesh is None:
+        states = dict(param_specs)
+    else:
+        sizes = mesh_sizes(mesh)
+        fs = 1
+        for a in fsdp_axes:
+            fs *= sizes[a]
+        fsdp = tuple(fsdp_axes)
+
+        def extend(spec, leaf):
+            parts = list(spec) + [None] * (len(leaf.shape) - len(spec))
+            used = {a for q in parts if q
+                    for a in (q if isinstance(q, tuple) else (q,))}
+            if used & set(fsdp):
+                return P(*parts)
+            for i, (q, dim) in enumerate(zip(parts, leaf.shape)):
+                if q is None and fs > 1 and dim % fs == 0 and dim >= fs:
+                    parts[i] = fsdp
+                    break
+            return P(*parts)
+
+        states = {name: extend(spec, params_struct[name])
+                  for name, spec in param_specs.items()}
+    return OptState(step=P(), master=states, m=states, v=states)

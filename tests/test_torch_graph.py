@@ -1,7 +1,6 @@
-"""PyTorch port vs the JAX package: graph tables, bit math and the canonical
-math (level 2). Inputs come from one seed; integer outputs must match
-exactly (tolerance 0)."""
-import itertools
+"""PyTorch port vs the JAX package: graph tables and bit math (the
+canonical math is in ``test_torch_graph_canon.py``). Inputs come from one
+seed; integer outputs must match exactly (tolerance 0)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -9,10 +8,8 @@ import pytest
 import torch
 
 from repro.core import bitset as jbitset
-from repro.core import canon_math as jcm
 from repro.core import graph as JG
 from repro_torch.core import bitset as tbitset
-from repro_torch.core import canon_math as tcm
 from repro_torch.core import graph as TG
 
 GENERATORS = [
@@ -88,33 +85,3 @@ def test_to_device_without_cuda_raises_unless_cpu_asked(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         TG.to_device(g)
     assert TG.to_device(g, "cpu").device.type == "cpu"
-
-
-def _all_codes(nv, n_labels):
-    pairs = [(a, b) for b in range(1, nv) for a in range(b)]
-    for bits in range(1 << len(pairs)):
-        adj = np.zeros((nv, nv), bool)
-        for i, (a, b) in enumerate(pairs):
-            if bits >> i & 1:
-                adj[a, b] = adj[b, a] = True
-        for labels in itertools.product(range(n_labels), repeat=nv):
-            yield jcm.encode(nv, adj, np.array(labels))
-
-
-@pytest.mark.parametrize("nv,n_labels", [(1, 3), (2, 3), (3, 3), (4, 2)])
-def test_canon_math_exhaustive_small_patterns(nv, n_labels):
-    codes = np.array(list(_all_codes(nv, n_labels)), dtype=np.int64)
-    jb, js = jcm._canonicalize_batch(codes)
-    tb, ts = tcm._canonicalize_batch(codes)
-    np.testing.assert_array_equal(tb, jb)
-    np.testing.assert_array_equal(ts, js)
-    for code in codes[:: max(1, len(codes) // 200)]:
-        jk, jsig = jcm.canonicalize_one(code)
-        tk, tsig = tcm.canonicalize_one(code)
-        assert tk == jk
-        np.testing.assert_array_equal(tsig, jsig)
-        np.testing.assert_array_equal(
-            tcm.automorphism_orbits(code), jcm.automorphism_orbits(code)
-        )
-    for a, b in zip(tcm.perm_tables(nv), jcm.perm_tables(nv)):
-        np.testing.assert_array_equal(a, b)
